@@ -10,20 +10,37 @@ each, and exits non-zero as soon as one fails:
   device     the card (`nvidia-smi` name and power limit), versions, build
   kernels    every kernel against its plain PyTorch version on the card,
              exact equality, at the shapes the prover gives it and on
-             worst-case inputs; times by CUDA events
-  golden     paper schedule [16,16,8], r=32, proved on the card at k=12
-             (satisfying witness) and k=11 (four random columns, so the
-             folded values are not all zero); the sha256 of
-             `serialize_proof` must equal the JAX package's, recorded in
-             tests/data/torch_golden.json, and the pure-int spec verifier
-             must accept
-  main_path  `MlweWitness.random(k=16, seed=1234)` at the paper schedule:
-             prove, verify, two tampered proofs refused, phase times, and
-             launch counts taken over the prove + verify alone
+             worst-case inputs; times by CUDA events.  The chain kernel is
+             also held against the host engine at its real length (4 chains
+             of 4,096 rate blocks) and timed per block beside it; the
+             thread-group permutation is timed at t=17 beside the
+             thread-per-state one
+  golden     proofs made on the card whose sha256 of `serialize_proof` must
+             equal the JAX package's, recorded in
+             tests/data/torch_golden.json, and which the pure-int spec
+             verifier must accept: the paper schedule [16,16,8], r=32, at
+             k=12 (satisfying witness) and k=11 (four random columns, so
+             the folded values are not all zero); schedules [32], [64],
+             [128], [64,8] and [32,32] (Poseidon widths 33, 65, 129); and the paper
+             schedule with the witness handed over as tensors on the card
+             (the device branch), which must also equal the host branch's
+             proof of the same witness
+  main_path  k=16, each path with the launch counts set to 0 just before
+             it and read just after: (a) `MlweWitness.random(k=16,
+             seed=1234)` at the paper schedule from host columns; (b) the
+             same witness as CUDA tensors, whose proof must be byte-equal
+             to (a)'s and whose column chains must run in the chain kernel
+             and not in the host engine; (c) four random columns at the
+             presets `hi128_64_8` [128,64,8] and `uni32x3` [32,32,32].
+             Every path: prove, verify, two tampered proofs refused, phase
+             times
 
 The line before the last lists every kernel with its launches on the main
-path, its error against the plain version, its time, the plain version's
-time and the least time the card could take (`bound_ms`).  The last line is
+paths, its error against the plain version, its time, the plain version's
+time and the least time the card could take (`bound_ms`).  Every time on it
+was measured in the run; where the plain version was timed at a smaller
+shape than the kernel (the chain), the row says so in `plain_shape` and
+gives the kernel's time at that shape too.  The last line is
 `{"ok": true, "device": {...}}`.  Without a CUDA device the script prints
 no result and exits with code 2.
 
@@ -63,7 +80,12 @@ MAC_REDC320 = 25
 MAC_POW5 = 3 * MAC_MONT_MUL
 
 SEED = 1234
-GOLDEN_ENTRIES = ["paper_k12", "paper_k11_unstructured"]
+GOLDEN_ENTRIES = ["paper_k12", "paper_k11_unstructured", "wide32_k6",
+                  "wide64_k7", "wide128_k8", "wide64_8_k10", "wide32_32_k11",
+                  "paper_k11_device_witness"]
+WIDE_PRESETS = [("hi128_64_8", [128, 64, 8]), ("uni32x3", [32, 32, 32])]
+CHAIN_REPLACES = ("stark_mlwe_tpu/ops/poseidon_chain.py:429",
+                  "stark_mlwe_tpu/ops/poseidon_pallas.py:584")
 
 
 def emit(obj) -> None:
@@ -111,10 +133,12 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, ROOT)
     from stark_mlwe_tpu_torch import fri, kernels, native
+    from stark_mlwe_tpu_torch.fri import fs
     from stark_mlwe_tpu_torch.ops import fr
     from stark_mlwe_tpu_torch.ops import poseidon as dpos
     from stark_mlwe_tpu_torch.spec import fri as spec_fri
     from stark_mlwe_tpu_torch.spec.field import P
+    from stark_mlwe_tpu_torch.spec import poseidon as spos
     from stark_mlwe_tpu_torch.spec.merkle import MerkleChannelCfg
     from stark_mlwe_tpu_torch.spec.transcript import default_params
     from stark_mlwe_tpu_torch.stark import (DeepFriParams, MlweWitness,
@@ -251,6 +275,10 @@ def main(argv=None) -> int:
     f8 = f[:8 * 37]
     err = max(err, check_exact("fr_fold (m=8, ragged)", fr.fold(f8, zp[:8]),
                                fr.fold_plain(f8, zp[:8])))
+    for mw in (32, 64, 128):            # the wide presets' folds
+        fw, zw = rand_elems(mw * 5), rand_elems(mw)
+        err = max(err, check_exact(f"fr_fold (m={mw})", fr.fold(fw, zw),
+                                   fr.fold_plain(fw, zw)))
     ms = time_ms(lambda: fr.fold(f, zp), 7, inner=20)
     pms = time_ms(lambda: fr.fold_plain(f, zp), 3)
     nout = full_n // m
@@ -289,7 +317,6 @@ def main(argv=None) -> int:
                                    dpos.permute_plain(edge, dp)))
         if t == 17:
             # the second oracle: the pure-int spec on a few states
-            from stark_mlwe_tpu_torch.spec import poseidon as spos
             few = fr.unpack_ints(st[:3], mont=True)
             want = [v for i in range(3)
                     for v in spos.permute(few[i * t:(i + 1) * t], params)]
@@ -308,7 +335,149 @@ def main(argv=None) -> int:
         if not rehearse:
             row[f"ms_B{B_extra}"] = time_ms(lambda: dpos.permute(st2, dp), 5)
         rows.append(row)
+
+    def edge_states(t):
+        return fr.to_device(fr.pack_ints(
+            [v for x in edge_ints for v in [x] * t]), dev).reshape(-1, t, 8)
+
+    # K5 poseidon_permute_group, t = 33, 65, 129: the tree levels of arity
+    # 32, 64 and 128.  Timed at the largest level a k=16 preset gives each
+    # width (2,048 parents of arity 32; 8 of arity 64 under hi128_64_8; 512
+    # of arity 128).
+    for t, B_main, B_more, replaces in (
+            (33, 2048, (512, 7, 1),
+             "stark_mlwe_tpu/ops/poseidon_pallas.py:486"),
+            (65, 8, (512, 7, 1),
+             "stark_mlwe_tpu/ops/poseidon_pallas.py:486"),
+            (129, 512, (7, 1),
+             "stark_mlwe_tpu/ops/poseidon_wide.py:198")):
+        params = spos.params_for_width(t)
+        dp = dpos.device_params(params)
+        if rehearse:
+            B_main, B_more = 2, (1,)
+        name = f"poseidon_permute_group_t{t}"
+        st = rand_elems(B_main, t)
+        out_k = dpos.permute(st, dp)
+        sync()
+        err = check_exact(name, out_k, dpos.permute_plain(st, dp))
+        for B in B_more:
+            st2 = rand_elems(B, t)
+            err = max(err, check_exact(f"{name} (B={B})",
+                                       dpos.permute(st2, dp),
+                                       dpos.permute_plain(st2, dp)))
+        edge = edge_states(t)
+        err = max(err, check_exact(f"{name} (edge values)",
+                                   dpos.permute(edge, dp),
+                                   dpos.permute_plain(edge, dp)))
+        one = fr.unpack_ints(st[:1], mont=True)
+        if fr.unpack_ints(out_k[:1], mont=True) != spos.permute(one, params):
+            raise AssertionError(f"{name}: disagrees with the spec")
+        ms = time_ms(lambda: dpos.permute(st, dp), 5)
+        pms = time_ms(lambda: dpos.permute_plain(st, dp), 1)
+        bms, by = bound(2 * 32 * t * B_main,
+                        B_main * permute_macs(t, params.rf, params.rp))
+        one_state = st[:1].contiguous()
+        rows.append({"name": name, "route": "cuda", "source":
+                     "stark_mlwe_tpu_torch/csrc/poseidon_permute_group.cu",
+                     "replaces": replaces, "shape": f"B={B_main}, t={t}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "tolerance": 0, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None,
+                     "ms_B1": time_ms(lambda: dpos.permute(one_state, dp), 5)})
+
+    # The two layouts side by side at t = 17: K1 (a thread per state) and
+    # K5's routine (a thread per element).  The prover keeps K1 there.
+    dp17 = dpos.device_params(default_params())
+    layouts = {}
+    for B in ((5,) if rehearse else (32, full_n)):
+        st = rand_elems(B, 17)
+        check_exact(f"poseidon_permute_group_t17 (B={B}) against "
+                    f"poseidon_permute_t17", dpos.permute_group(st, dp17),
+                    dpos.permute(st, dp17))
+        layouts[f"B={B}"] = {
+            "thread_per_state_ms": time_ms(lambda: dpos.permute(st, dp17), 5),
+            "thread_per_element_ms":
+                time_ms(lambda: dpos.permute_group(st, dp17), 5)}
+
+    # K4 poseidon_absorb_chain: against its plain version on short chains
+    # (the plain version takes about a second per block on the card), a
+    # ragged column through `tagged_hash_vecs` against the host engine, and
+    # the real length - 4 columns of 65,536 rows, 4,096 rate blocks each -
+    # against the host engine, timed per block beside it.
+    C, rate = 4, dp17.rate
+    nb_short = 2 if rehearse else 8
+    cols = rand_elems(C, 5 + nb_short * rate)
+    st0 = rand_elems(C, 17)
+    err = check_exact("poseidon_absorb_chain",
+                      dpos.absorb_chain(st0, cols, 5, nb_short, dp17),
+                      dpos.absorb_chain_plain(st0, cols, 5, nb_short, dp17))
+    edge = edge_states(17)[:C]
+    err = max(err, check_exact(
+        "poseidon_absorb_chain (edge values)",
+        dpos.absorb_chain(edge, edge.repeat(1, 2, 1), 1, 2, dp17),
+        dpos.absorb_chain_plain(edge, edge.repeat(1, 2, 1), 1, 2, dp17)))
+    dp9 = dpos.device_params(MerkleChannelCfg.new(8).params)
+    cols9, st9 = rand_elems(3, 2 + 2 * dp9.rate), rand_elems(3, 9)
+    err = max(err, check_exact(
+        "poseidon_absorb_chain (t=9)",
+        dpos.absorb_chain(st9, cols9, 2, 2, dp9),
+        dpos.absorb_chain_plain(st9, cols9, 2, 2, dp9)))
+    tags = [b"ALI/A", b"ALI/S", b"ALI/E", b"ALI/T"]
+
+    def host_cols(x):
+        return [fr.to_u64(c) for c in x.cpu()]
+
+    ragged = rand_elems(C, 12 + 3 * rate + 5)    # head, 3 blocks, tail
+    if fs.tagged_hash_vecs(tags, ragged) != fs.tagged_hash_cols_native(
+            tags, host_cols(ragged)):
+        raise AssertionError("tagged_hash_vecs (head + blocks + tail) "
+                             "disagrees with the host engine")
+    nb_full = full_n // rate
+    long_cols = rand_elems(C, full_n)
+    long_host = host_cols(long_cols)
+    t0 = time.perf_counter()
+    want = fs.tagged_hash_cols_native(tags, long_host)
+    host_chain_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    got = fs.tagged_hash_vecs(tags, long_cols)
+    device_chain_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"tagged_hash_vecs over {full_n} rows disagrees "
+                             f"with the host engine")
+    ms = time_ms(lambda: dpos.absorb_chain(st0, long_cols, 0, nb_full, dp17),
+                 3)
+    # The plain version is timed where it was compared (nb_short blocks: at
+    # the full length it would run for the better part of an hour), and the
+    # kernel is timed again at that shape so the two can be set side by side.
+    ms_short = time_ms(
+        lambda: dpos.absorb_chain(st0, cols, 5, nb_short, dp17), 5)
+    pms_short = time_ms(
+        lambda: dpos.absorb_chain_plain(st0, cols, 5, nb_short, dp17), 1)
+    bms, by = bound(32 * C * (2 * 17 + nb_full * rate),
+                    C * nb_full * permute_macs(17, dp17.rf, dp17.rp))
+    rows.append({"name": "poseidon_absorb_chain", "route": "cuda", "source":
+                 "stark_mlwe_tpu_torch/csrc/poseidon_absorb_chain.cu",
+                 "replaces": CHAIN_REPLACES[0],
+                 "also_replaces": CHAIN_REPLACES[1],
+                 "shape": f"C={C}, t=17, nb={nb_full}", "max_abs_err": err,
+                 "tolerance": 0, "ms": ms,
+                 "plain_ms": pms_short,
+                 "plain_shape": f"C={C}, t=17, nb={nb_short}",
+                 "ms_at_plain_shape": ms_short,
+                 "compared_with": f"the plain version at nb={nb_short} "
+                                  f"(t=17) and at two blocks (edge values; "
+                                  f"t=9); the host engine at nb={nb_full}",
+                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "ms_per_block": ms / nb_full,
+                 "host_engine_ms_per_block": host_chain_s * 1e3 / nb_full,
+                 "host_engine_chain_seconds": host_chain_s,
+                 "tagged_hash_vecs_seconds": device_chain_s})
     emit({"phase": "kernels", "card": card, "exact": True,
+          "layouts_t17": layouts,
+          "chain": {k: rows[-1][k] for k in (
+              "shape", "ms", "ms_per_block", "host_engine_ms_per_block",
+              "host_engine_chain_seconds", "tagged_hash_vecs_seconds")},
           "kernels": [{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
                                          "max_abs_err")} for r in rows],
           "seconds": time.perf_counter() - t_start})
@@ -316,6 +485,13 @@ def main(argv=None) -> int:
     # ---- phase 3: golden --------------------------------------------------
     with open(os.path.join(ROOT, "tests", "data", "torch_golden.json")) as fh:
         golden = {e["name"]: e for e in json.load(fh)["entries"]}
+    def prove_device_witness(w, wparams):
+        """The device branch: the columns are tensors on the card (in the
+        rehearsal, CPU tensors sent down the same branch)."""
+        ali = fri.DeviceDeepAliRealBuilder(device_columns=rehearse)
+        return fri.deep_fri_prove(ali, *w.to_device(dev), len(w.a), wparams,
+                                  device=dev)
+
     names = ["small_k6"] if rehearse else GOLDEN_ENTRIES
     for name in names:
         ent = golden[name]
@@ -324,8 +500,16 @@ def main(argv=None) -> int:
         make = (MlweWitness.random_unstructured if ent.get("unstructured")
                 else MlweWitness.random)
         t0 = time.perf_counter()
-        gproof = prove(make(k=ent["k"], seed=ent["seed"]), gparams,
-                       device=dev)
+        gw = make(k=ent["k"], seed=ent["seed"])
+        on_device = ent.get("witness") == "device" or rehearse
+        if on_device:
+            gproof = prove_device_witness(gw, gparams)
+            if serialize_proof(gproof) != serialize_proof(
+                    prove(gw, gparams, device=dev)):
+                raise AssertionError(f"golden {name}: the device branch and "
+                                     f"the host branch give different proofs")
+        else:
+            gproof = prove(gw, gparams, device=dev)
         gbuf = serialize_proof(gproof)
         gsha = hashlib.sha256(gbuf).hexdigest()
         if gsha != ent["sha256"] or len(gbuf) != ent["proof_bytes"]:
@@ -341,64 +525,108 @@ def main(argv=None) -> int:
                                  f"refused the proof")
         spec_s = time.perf_counter() - t1
         emit({"phase": "golden", "entry": name, "k": ent["k"],
+              "schedule": ent["schedule"], "device_witness": on_device,
               "proof_bytes": len(gbuf), "sha256": gsha, "matches_jax": True,
               "verify": True, "spec_verify": True,
               "spec_verify_seconds": spec_s,
               "seconds": time.perf_counter() - t0})
 
-    # ---- phase 4: main path ----------------------------------------------
+    # ---- phase 4: main paths ---------------------------------------------
     k = 7 if rehearse else 16
-    params = (DeepFriParams(schedule=[8, 4], r=6, seed_z=0xDEEFBAAD)
-              if rehearse else
-              DeepFriParams(schedule=[16, 16, 8], r=32, seed_z=0xDEEFBAAD))
+    paper = (DeepFriParams(schedule=[8, 4], r=6, seed_z=0xDEEFBAAD)
+             if rehearse else
+             DeepFriParams(schedule=[16, 16, 8], r=32, seed_z=0xDEEFBAAD))
     t0 = time.perf_counter()
     witness = MlweWitness.random(k=k, seed=SEED)
     witness_s = time.perf_counter() - t0
+    random_cols = MlweWitness.random_unstructured(k=k, seed=SEED)
+    K2 = ["fr_mont_mul", "fr_add", "fr_sub"]
+    by_path = {}
 
-    kernels.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    proof = prove(witness, params, device=dev)
-    sync()
-    prove_s = time.perf_counter() - t0
-    phases = dict(fri.phase_seconds)
-    t0 = time.perf_counter()
-    accepted = verify(params, proof, device=dev)
-    verify_s = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    def drive(path, params, run, expected, absent_phase=None):
+        """One path: counts to 0, prove + verify, counts read; then the
+        proof's shape, the wire format and two tampered copies."""
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        proof = run()
+        sync()
+        prove_s = time.perf_counter() - t0
+        phases = dict(fri.phase_seconds)
+        t0 = time.perf_counter()
+        accepted = verify(params, proof, device=dev)
+        verify_s = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        by_path[path] = counts
 
-    if not accepted:
-        raise AssertionError("main path: verify refused the proof")
-    buf = serialize_proof(proof)
-    if serialize_proof(deserialize_proof(buf)) != buf:
-        raise AssertionError("main path: wire format does not round-trip")
-    L = len(params.schedule)
-    per_query = 8 + 32 * L + 8 + 128 * L + 8 + 64      # the format's tail
-    for what, off in (("root", 8 + 32 + 8 + 3),
-                      ("opened value",
-                       len(buf) - per_query + 8 + 32 * L + 8 + 1)):
-        bad = bytearray(buf)
-        bad[off] ^= 1
-        if verify(params, deserialize_proof(bytes(bad)), device=dev):
-            raise AssertionError(f"main path: a proof with a flipped byte "
-                                 f"in a {what} was accepted")
-    if len(proof.roots) != len(params.schedule) + 1 \
-            or len(proof.queries) != params.r or proof.n0 != 1 << k:
-        raise AssertionError("main path: proof of unexpected shape")
-    if not rehearse:
-        missing = [n for n, c in counts.items() if c == 0]
-        if missing:
-            raise AssertionError(f"main path launched no {missing}")
-    emit({"phase": "main_path", "k": k, "schedule": params.schedule,
-          "r": params.r, "verify": True, "tamper_refused": True,
-          "proof_bytes": len(buf),
-          "spec_proof_bytes": spec_fri.deep_fri_proof_size_bytes(proof),
-          "witness_seconds": witness_s, "prove_seconds": prove_s,
-          "verify_seconds": verify_s, "phase_seconds": phases,
-          "launches": counts, "card": card})
+        if not accepted:
+            raise AssertionError(f"{path}: verify refused the proof")
+        buf = serialize_proof(proof)
+        if serialize_proof(deserialize_proof(buf)) != buf:
+            raise AssertionError(f"{path}: wire format does not round-trip")
+        L = len(params.schedule)
+        per_query = 8 + 32 * L + 8 + 128 * L + 8 + 64   # the format's tail
+        for what, off in (("root", 8 + 32 + 8 + 3),
+                          ("opened value",
+                           len(buf) - per_query + 8 + 32 * L + 8 + 1)):
+            bad = bytearray(buf)
+            bad[off] ^= 1
+            if verify(params, deserialize_proof(bytes(bad)), device=dev):
+                raise AssertionError(f"{path}: a proof with a flipped byte "
+                                     f"in a {what} was accepted")
+        if len(proof.roots) != L + 1 or len(proof.queries) != params.r \
+                or proof.n0 != 1 << k:
+            raise AssertionError(f"{path}: proof of unexpected shape")
+        if absent_phase is not None and absent_phase in phases:
+            raise AssertionError(f"{path}: phase {absent_phase} ran")
+        if not rehearse:
+            missing = [n for n in expected if counts[n] == 0]
+            if missing:
+                raise AssertionError(f"{path} launched no {missing}")
+        emit({"phase": "main_path", "path": path, "k": k,
+              "schedule": params.schedule, "r": params.r, "verify": True,
+              "tamper_refused": True, "proof_bytes": len(buf),
+              "spec_proof_bytes": spec_fri.deep_fri_proof_size_bytes(proof),
+              "prove_seconds": prove_s, "verify_seconds": verify_s,
+              "phase_seconds": phases,
+              "launches": {n: c for n, c in counts.items() if c},
+              "card": card})
+        return buf
+
+    paper_kernels = ["poseidon_permute_t17", "poseidon_permute_t9",
+                     "fr_fold"] + K2
+    buf_host = drive("paper, host witness", paper,
+                     lambda: prove(witness, paper, device=dev),
+                     paper_kernels)
+    buf_dev = drive("paper, device witness", paper,
+                    lambda: prove_device_witness(witness, paper),
+                    paper_kernels + ["poseidon_absorb_chain"],
+                    absent_phase="ali/host_absorb")
+    if buf_dev != buf_host:
+        raise AssertionError("main path: the device-witness proof differs "
+                             "from the host-witness proof")
+    wide = ([("wide64", [64], ["poseidon_permute_group_t65"]),
+             ("wide32", [32], ["poseidon_permute_group_t33"])]
+            if rehearse else
+            [(WIDE_PRESETS[0][0], WIDE_PRESETS[0][1],
+              ["poseidon_permute_group_t129", "poseidon_permute_group_t65",
+               "poseidon_permute_t9"]),
+             (WIDE_PRESETS[1][0], WIDE_PRESETS[1][1],
+              ["poseidon_permute_group_t33", "poseidon_permute_t9"])])
+    for preset, schedule, group_kernels in wide:
+        wparams = DeepFriParams(schedule=schedule, r=paper.r,
+                                seed_z=0xDEEFBAAD)
+        drive(f"{preset}, host witness", wparams,
+              lambda: prove(random_cols, wparams, device=dev),
+              group_kernels + ["poseidon_permute_t17", "fr_fold"] + K2)
+    emit({"phase": "main_path", "witness_seconds": witness_s,
+          "device_witness_equals_host_witness": True})
 
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if not rehearse and r["launches"] == 0:
+            raise AssertionError(f"no main path launched {r['name']}")
     if rehearse:
         emit({"kernels": rows})
         print("rehearsal on the CPU finished: no kernel was built or run",

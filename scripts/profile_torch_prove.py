@@ -1,9 +1,12 @@
 """Profile one prove of the PyTorch/CUDA port on the GPU.
 
-    python3 scripts/profile_torch_prove.py [--k 16] [--out DIR]
+    python3 scripts/profile_torch_prove.py [--k 16] [--schedule 16,16,8]
+                                           [--device-witness] [--out DIR]
 
-Proves `MlweWitness.random(k, seed=1234)` at the paper schedule [16,16,8],
-r=32 once to warm up (kernel build, constants), then once more under
+Proves `MlweWitness.random(k, seed=1234)` at the given schedule (default:
+the paper schedule [16,16,8]), r=32, from host columns or, with
+`--device-witness`, from columns that already lie on the card (the device
+branch of `build_f0`), once to warm up (kernel build, constants), then once more under
 `torch.profiler` (CPU + CUDA activities) and prints one JSON line: wall
 seconds of the traced prove, seconds the card was busy (sum of device time
 over all kernels and copies), the idle share, and device time by kernel
@@ -27,6 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--k", type=int, default=16)
+    ap.add_argument("--schedule", default="16,16,8")
+    ap.add_argument("--device-witness", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -44,13 +49,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    params = DeepFriParams(schedule=[16, 16, 8], r=32, seed_z=0xDEEFBAAD)
+    schedule = [int(m) for m in args.schedule.split(",")]
+    params = DeepFriParams(schedule=schedule, r=32, seed_z=0xDEEFBAAD)
     w = MlweWitness.random(k=args.k, seed=1234)
+    cols = w.to_device() if args.device_witness else None
 
     def timed():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prove(w, params)
+        if cols is None:
+            prove(w, params)
+        else:
+            fri.deep_fri_prove(fri.DeviceDeepAliRealBuilder(), *cols,
+                               1 << args.k, params)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -77,7 +88,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, "prove_trace.json"))
     print(json.dumps({
-        "card": card, "k": args.k, "first_prove_seconds": warm,
+        "card": card, "k": args.k, "schedule": schedule,
+        "device_witness": args.device_witness, "first_prove_seconds": warm,
         "prove_seconds": plain, "traced_prove_seconds": traced,
         "device_busy_seconds": busy,
         "device_idle_share": (1.0 - busy / traced) if busy else None,

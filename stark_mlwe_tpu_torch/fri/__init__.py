@@ -215,14 +215,26 @@ def _roots_readback(layers):
 # ---------------------------------------------------------------------------
 
 def _host_u64_cols(xs):
-    """Witness columns as host [n, 4] uint64 Montgomery limb arrays: int
-    lists are packed here; numpy / CPU-tensor limb arrays pass as views."""
+    """Witness columns as host [n, 4] uint64 Montgomery limb arrays, or
+    None: int lists are packed here, numpy / CPU-tensor limb arrays pass as
+    views; columns that live on the card return None - the device branch
+    is taken then, and nothing is read back."""
     out = []
     for x in xs:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return None
         if isinstance(x, (list, tuple)):
             x = fr.pack_ints(list(x), mont=True)
         out.append(fr.to_u64(x))
     return out
+
+
+def _device_column_hashes(tags, cols, dev):
+    """The device branch's digests: the four columns stacked on `dev`,
+    hashed by `fs.tagged_hash_vecs`.  Returns (digests, column tensors)."""
+    cols = [_as_mont_dev(c, dev) for c in cols]
+    with _phase("ali/column_hashes"):
+        return fs.tagged_hash_vecs(tags, torch.stack(cols, dim=0)), cols
 
 
 class DeviceDeepAliRealBuilder:
@@ -230,15 +242,21 @@ class DeviceDeepAliRealBuilder:
     columns, then merges on the device."""
 
     def __init__(self, r_eval_opt=None, use_blinding=False,
-                 ds_tag=b"ALI/DEEP"):
+                 ds_tag=b"ALI/DEEP", device_columns=False):
+        """`device_columns=True` sends host-resident columns through the
+        device branch too (they are uploaded first); columns that already
+        live on the card always take it."""
         self.r_eval_opt = r_eval_opt
         self.use_blinding = use_blinding
         self.ds_tag = ds_tag
+        self.device_columns = device_columns
 
     def build_f0(self, a, s, e, t, n0: int, domain: FriDomain, device=None):
         dev = resolve(device)
-        cols = _host_u64_cols((a, s, e, t))
         tags = [b"ALI/A", b"ALI/S", b"ALI/E", b"ALI/T"]
+        cols = None if self.device_columns else _host_u64_cols((a, s, e, t))
+        if cols is None:
+            return self._build_f0_device(tags, (a, s, e, t), n0, domain, dev)
         # The absorb chain is inherently sequential (one permutation per
         # rate block) and runs in the host engine, one thread per column;
         # overlap it with everything that has no (z, beta) dependence: the
@@ -267,6 +285,22 @@ class DeviceDeepAliRealBuilder:
                 phi0, w, z, beta=beta,
                 r_eval=r_dev if self.use_blinding else None)
 
+    def _build_f0_device(self, tags, cols, n0, domain, dev):
+        """Columns on the card: the four Fiat-Shamir chains run there (one
+        launch of the chain kernel), and f0 comes from the device merge."""
+        (ha, hs, he, ht), cols = _device_column_hashes(tags, cols, dev)
+        seed_f = fs.one_block_tagged_hash_batch(
+            b"ALI/seed", [[ha, hs, he, ht, n0 % P]])[0]
+        z, beta = ali_sample_z_beta_fs(self.ds_tag, n0, seed_f)
+        r_dev = (_as_mont_dev(self.r_eval_opt, dev)
+                 if (self.use_blinding and self.r_eval_opt is not None)
+                 else None)
+        with _phase("ali/f0_quotient"):
+            f0, _, _ = dali.merge_evals_device(
+                *cols, domain.omega, z, r_eval=r_dev, beta=beta,
+                with_c_star=False)
+        return f0
+
 
 def _as_mont_dev(x, device):
     if isinstance(x, (list, tuple)):
@@ -277,11 +311,18 @@ def _as_mont_dev(x, device):
 class DeviceDeepAliMock:
     """fri.rs:480-495: deterministic pseudo-random f0 (device packing)."""
 
+    def __init__(self, device_columns=False):
+        self.device_columns = device_columns
+
     def build_f0(self, a, s, e, t, n0: int, domain: FriDomain, device=None):
         dev = resolve(device)
-        cols = _host_u64_cols((a, s, e, t))
-        ha, hs, he, ht = fs.tagged_hash_cols_native(
-            [b"ALI/a", b"ALI/s", b"ALI/e", b"ALI/t"], cols)
+        tags = [b"ALI/a", b"ALI/s", b"ALI/e", b"ALI/t"]
+        cols = None if self.device_columns else _host_u64_cols((a, s, e, t))
+        if cols is None:
+            (ha, hs, he, ht), _ = _device_column_hashes(tags, (a, s, e, t),
+                                                        dev)
+        else:
+            ha, hs, he, ht = fs.tagged_hash_cols_native(tags, cols)
         seed_f = fs.one_block_tagged_hash_batch(
             b"ALI/mock/seed", [[ha, hs, he, ht, n0 % P]])[0]
         rng = StdRng.from_seed(fr_to_bytes(seed_f))

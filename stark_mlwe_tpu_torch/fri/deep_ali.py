@@ -72,15 +72,18 @@ def merge_evals_device(a, s, e, t, omega: int, z: int,
     """
     n = int(a.shape[0])
     assert pow(z, n, P) != 1, "z must be outside H"
+    w = omega_powers(omega, n, a.device)
+    if not with_c_star:
+        # the quotient alone, in the op order of `_merge_kernel`: eager
+        # code has no compiler to drop the unused barycentric sum
+        return f0_from_phi(phi_kernel(a, s, e, t), w, z, beta=beta,
+                           r_eval=r_eval), z, None
     zh = (pow(z, n, P) - 1) % P
     n_inv = pow(n % P, P - 2, P)
     scale = zh * n_inv % P
-    w = omega_powers(omega, n, a.device)
     z_m, scale_m, beta_m = _consts(a.device, z, scale, beta)
     f0, phi_z = _merge_kernel(a, s, e, t, w, z_m, scale_m,
                               r=r_eval, beta_m=beta_m)
-    if not with_c_star:
-        return f0, z, None
     phi_z_int = fr.unpack_ints(phi_z[None, :], mont=True)[0]
     c_star = phi_z_int * pow(zh, P - 2, P) % P
     return f0, z, c_star

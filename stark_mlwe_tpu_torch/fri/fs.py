@@ -4,7 +4,9 @@ The Rust reference drives FS through a Poseidon sponge transcript
 (crates/transcript/src/lib.rs) and hashes *entire witness columns* into it
 (`tr_hash_fields_tagged`, deep_ali/src/fri.rs:28-35).  The sponge chain is
 inherently sequential, so the long column hashes run as four parallel
-chains in the host engine; *independent* one-block tagged hashes (the
+chains: in the host engine for host-resident columns
+(`tagged_hash_cols_native`), in ONE launch of the chain kernel for columns
+that live on the card (`tagged_hash_vecs`).  *Independent* one-block tagged hashes (the
 per-(layer, query) index seeds, the per-leaf pair hashes) batch across the
 leading axis: whole FRI layers of leaf hashes on the device, small batches
 in the host engine to avoid a device round trip.
@@ -161,3 +163,45 @@ def tagged_hash_cols_native(tags, cols_u64, label: bytes = b"FRI/FS",
                                                default_params())
     return [resume_fast(s, p).challenge(out_label)
             for s, p in zip(new_states, new_pos)]
+
+
+def tagged_hash_vecs(tags, vecs_mont, label: bytes = b"FRI/FS",
+                     out_label: bytes = b"out") -> list:
+    """Batched `tr_hash_fields_tagged(tag_b, vec_b)` over B independent
+    (tag, column) pairs of equal length, on the device the columns lie on.
+
+    vecs_mont: [B, n, 8] Montgomery.  The head piece fills the prefix's
+    block up to the first block boundary, `dpos.absorb_chain` runs the full
+    rate blocks of all B chains in one launch (reading them where they lie
+    in `vecs_mont`), the tail is added, and ONE small readback of the
+    [B, t, 8] states lets the challenge be finished on the host."""
+    B, n = int(vecs_mont.shape[0]), int(vecs_mont.shape[1])
+    assert len(tags) == B
+    prefixes = [transcript_prefix(label, t) for t in tags]
+    pos = prefixes[0][1]
+    assert all(p == pos for _, p in prefixes)
+    state = fr.to_device(
+        fr.pack_ints([v for st, _ in prefixes for v in st], mont=True),
+        vecs_mont.device).reshape(B, T, fr.N)
+
+    dp = _dp()
+    off = min(n, RATE - pos)
+    if off:
+        state[:, pos:pos + off] = fr.add(state[:, pos:pos + off],
+                                         vecs_mont[:, :off])
+        pos += off
+        if pos == RATE:
+            state = dpos.permute(state, dp)
+            pos = 0
+    nb = (n - off) // RATE
+    if nb:
+        state = dpos.absorb_chain(state, vecs_mont, off, nb, dp)
+        off += nb * RATE
+    tail = n - off
+    if tail:
+        state[:, :tail] = fr.add(state[:, :tail], vecs_mont[:, off:])
+        pos = tail
+
+    ints = fr.unpack_ints(fr.from_mont(state.reshape(-1, fr.N)))
+    return [resume_fast(ints[b * T:(b + 1) * T], pos).challenge(out_label)
+            for b in range(B)]

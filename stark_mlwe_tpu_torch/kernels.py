@@ -23,12 +23,14 @@ import time
 from . import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_HEADERS = ("fr.cuh", "poseidon.cuh")
+_HEADERS = ("fr.cuh", "poseidon.cuh", "poseidon_group.cuh")
 
 SOURCES = {
     "poseidon_permute": "poseidon_permute.cu",
     "fr_elementwise": "fr_elementwise.cu",
     "fr_fold": "fr_fold.cu",
+    "poseidon_absorb_chain": "poseidon_absorb_chain.cu",
+    "poseidon_permute_group": "poseidon_permute_group.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,6 +43,11 @@ launches = {
     "fr_add": 0,
     "fr_sub": 0,
     "fr_fold": 0,
+    "poseidon_absorb_chain": 0,
+    "poseidon_permute_group_t17": 0,
+    "poseidon_permute_group_t33": 0,
+    "poseidon_permute_group_t65": 0,
+    "poseidon_permute_group_t129": 0,
 }
 
 _libs: dict = {}
@@ -78,6 +85,14 @@ def _declare(name: str, lib) -> None:
     elif name == "fr_fold":
         lib.fr_fold.argtypes = [vp, vp, vp, l, i, vp]
         lib.fr_fold.restype = i
+    elif name == "poseidon_absorb_chain":
+        lib.poseidon_absorb_chain.argtypes = [vp, vp, vp, i, l, l, l, i, i, i,
+                                              vp, vp, vp, vp, vp, vp, vp]
+        lib.poseidon_absorb_chain.restype = i
+    elif name == "poseidon_permute_group":
+        lib.poseidon_permute_group.argtypes = [vp, vp, l, i, i, i,
+                                               vp, vp, vp, vp, vp, vp, vp]
+        lib.poseidon_permute_group.restype = i
 
 
 def build_all() -> None:

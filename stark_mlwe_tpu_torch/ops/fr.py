@@ -219,12 +219,12 @@ class PlainMatrix:
     def __init__(self, rows, device):
         to, ti = len(rows), len(rows[0])
         width = 2 * _N16
+        buf = b"".join((v * MAT_SCALE % P).to_bytes(32, "little")
+                       for row in rows for v in row)
+        limbs = np.frombuffer(buf, dtype="<u2").reshape(to, ti, _N16)
         W = np.zeros((ti, _N16, to, width), dtype=np.float64)
-        for i in range(to):
-            for j in range(ti):
-                limbs = _limbs16_of(rows[i][j] * MAT_SCALE % P)
-                for mm in range(_N16):
-                    W[j, mm, i, mm:mm + _N16] = limbs
+        for mm in range(_N16):
+            W[:, mm, :, mm:mm + _N16] = limbs.transpose(1, 0, 2)
         self.to, self.ti = to, ti
         self.W = torch.from_numpy(
             W.reshape(ti * _N16, to * width)).to(device)

@@ -4,12 +4,21 @@ Counterpart of `ops/poseidon.py` of the JAX package, bit-exact against the
 golden spec in `spec.poseidon`.  State batches are `[B, t, 8]` Montgomery
 limb tensors.
 
-`permute` launches K1 `poseidon_permute` (csrc/poseidon_permute.cu), which
-replaces the Pallas kernel `_permute_tiles` of the JAX package
-(ops/poseidon_pallas.py), at widths t = 17 and t = 9.  On a CPU tensor it
-takes `permute_plain`: the same rounds as dense PyTorch tensor code (ARK,
-x^5, one fused constant-matrix apply per round), which runs on any device
-and is what the kernel is held against.
+`permute` launches K1 `poseidon_permute` (csrc/poseidon_permute.cu; one
+thread per state) at widths t = 17 and t = 9 and K5 `poseidon_permute_group`
+(csrc/poseidon_permute_group.cu; one thread per state element) at t = 33, 65
+and 129.  Together they replace the Pallas kernels `_permute_tiles`
+(ops/poseidon_pallas.py of the JAX package) and `_permute_tiles_wide`
+(ops/poseidon_wide.py).  On a CPU tensor `permute` takes `permute_plain`: the
+same rounds as dense PyTorch tensor code (ARK, x^5, one fused
+constant-matrix apply per round), which runs on any device and is what the
+kernels are held against.
+
+`absorb_chain` launches K4 `poseidon_absorb_chain`
+(csrc/poseidon_absorb_chain.cu): C sponge chains of nb sequential (add rate
+block, permute) steps in one launch, in place of the Pallas kernels
+`absorb_chain` (ops/poseidon_pallas.py) and `absorb_chain_lanes`
+(ops/poseidon_chain.py).  Its plain version is `absorb_chain_plain`.
 
 Sponges lay out their absorb schedule statically (block boundaries, the
 10* pad marker), so each batched hash is a fixed sequence of block-add +
@@ -25,7 +34,10 @@ from .. import kernels, native
 from ..spec.poseidon import PoseidonParams
 from . import fr
 
-SUPPORTED_WIDTHS = (9, 17)
+SUPPORTED_WIDTHS = (9, 17, 33, 65, 129)
+THREAD_PER_STATE_WIDTHS = (9, 17)     # K1; the wider ones go to K5
+GROUP_WIDTHS = (17, 33, 65, 129)      # K5 (17 only to be timed beside K1)
+CHAIN_WIDTHS = (9, 17)                # K4
 
 
 class DeviceParams:
@@ -39,13 +51,15 @@ class DeviceParams:
     def __init__(self, params: PoseidonParams):
         if params.t not in SUPPORTED_WIDTHS:
             raise NotImplementedError(
-                f"Poseidon width t={params.t}: the port has t=17 and t=9")
+                f"Poseidon width t={params.t}: the port has t in "
+                f"{SUPPORTED_WIDTHS}")
         self.spec_params = params
         self.t = params.t
         self.rate = params.rate
         self.rf = params.rf
         self.rp = params.rp
         self._kernel: dict = {}
+        self._group: dict = {}
         self._plain: dict = {}
 
     def kernel_consts(self, device):
@@ -56,6 +70,22 @@ class DeviceParams:
                 fr.to_device(fr.from_u64(a.reshape(-1, 4)), device)
                 for a in native.pack_params(self.spec_params))
         return self._kernel[key]
+
+    def group_consts(self, device):
+        """The constants of the thread-group kernels (K4, K5): those of
+        `kernel_consts` with the two dense matrices transposed, so that the
+        threads of a warp, one per row, read neighbouring elements."""
+        key = str(device)
+        if key not in self._group:
+            mds, rcf, rcp, qrow, qcol, mfin = self.kernel_consts(device)
+            t = self.t
+
+            def transposed(m):
+                return m.reshape(t, t, fr.N).transpose(0, 1).contiguous()
+
+            self._group[key] = (transposed(mds), rcf, rcp, qrow, qcol,
+                                transposed(mfin))
+        return self._group[key]
 
     def plain_consts(self, device):
         """(rc schedule [R, t, 8], full-round flags, PlainMatrix)."""
@@ -101,14 +131,20 @@ def permute_plain(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
     return state
 
 
-def permute(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
-    """Batched permutation: state [B, t, 8] Montgomery -> same shape."""
+def _check_states(state: torch.Tensor, dp: DeviceParams, what: str) -> None:
     if state.dtype != torch.int32 or state.dim() != 3 \
             or state.shape[1:] != (dp.t, fr.N):
-        raise TypeError(f"poseidon permute: expected [B, {dp.t}, 8] int32, "
+        raise TypeError(f"{what}: expected [B, {dp.t}, 8] int32, "
                         f"got {tuple(state.shape)} {state.dtype}")
+
+
+def permute(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
+    """Batched permutation: state [B, t, 8] Montgomery -> same shape."""
+    _check_states(state, dp, "poseidon permute")
     if not state.is_cuda:
         return permute_plain(state, dp)
+    if dp.t not in THREAD_PER_STATE_WIDTHS:
+        return permute_group(state, dp)
     state = state.contiguous()
     out = torch.empty_like(state)
     B = int(state.shape[0])
@@ -121,6 +157,84 @@ def permute(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
         *[c.data_ptr() for c in consts], kernels.stream_ptr())
     kernels.check(rc, f"poseidon_permute t={dp.t}")
     kernels.launches[f"poseidon_permute_t{dp.t}"] += 1
+    return out
+
+
+def permute_group(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
+    """The permutation through K5 `poseidon_permute_group` (a block per
+    state, a thread per element).  `permute` sends the wide widths here."""
+    _check_states(state, dp, "poseidon permute_group")
+    if not state.is_cuda:
+        return permute_plain(state, dp)
+    if dp.t not in GROUP_WIDTHS:
+        raise NotImplementedError(
+            f"poseidon permute_group: the kernel has t in {GROUP_WIDTHS}, "
+            f"not t={dp.t}")
+    state = state.contiguous()
+    out = torch.empty_like(state)
+    B = int(state.shape[0])
+    if B == 0:
+        return out
+    consts = dp.group_consts(state.device)
+    lib = kernels.lib("poseidon_permute_group")
+    rc = lib.poseidon_permute_group(
+        state.data_ptr(), out.data_ptr(), B, dp.t, dp.rf, dp.rp,
+        *[c.data_ptr() for c in consts], kernels.stream_ptr())
+    kernels.check(rc, f"poseidon_permute_group t={dp.t}")
+    kernels.launches[f"poseidon_permute_group_t{dp.t}"] += 1
+    return out
+
+
+def absorb_chain_plain(state, cols, off: int, nb: int, dp: DeviceParams):
+    """Plain version of `absorb_chain`: nb times (add a rate block into the
+    rate elements, `permute_plain`)."""
+    rate = dp.rate
+    for b in range(nb):
+        blk = cols[:, off + b * rate:off + (b + 1) * rate, :]
+        head = fr.add_plain(state[:, :rate, :], blk)
+        state = permute_plain(torch.cat([head, state[:, rate:, :]], dim=1),
+                              dp)
+    return state
+
+
+def absorb_chain(state: torch.Tensor, cols: torch.Tensor, off: int, nb: int,
+                 dp: DeviceParams) -> torch.Tensor:
+    """C independent sponge chains.  state: [C, t, 8]; cols: [C, n, 8]
+    (both Montgomery).  Chain c absorbs rows off .. off + nb*rate - 1 of
+    column c as nb rate blocks, one permutation after each; returns the
+    states [C, t, 8].  The blocks are read from `cols` where they lie."""
+    _check_states(state, dp, "poseidon absorb_chain")
+    C, n = int(cols.shape[0]), int(cols.shape[1])
+    if cols.dtype != torch.int32 or cols.dim() != 3 \
+            or cols.shape[2] != fr.N or C != int(state.shape[0]):
+        raise TypeError(f"poseidon absorb_chain: expected columns "
+                        f"[{int(state.shape[0])}, n, 8] int32, got "
+                        f"{tuple(cols.shape)} {cols.dtype}")
+    if off < 0 or nb < 0 or off + nb * dp.rate > n:
+        raise ValueError(f"poseidon absorb_chain: rows {off}..+{nb}*"
+                         f"{dp.rate} exceed the {n} rows of the columns")
+    if state.device != cols.device:
+        raise ValueError(f"poseidon absorb_chain: state on {state.device}, "
+                         f"columns on {cols.device}")
+    if not state.is_cuda:
+        return absorb_chain_plain(state, cols, off, nb, dp)
+    if dp.t not in CHAIN_WIDTHS:
+        raise NotImplementedError(
+            f"poseidon absorb_chain: the chain kernel has t in "
+            f"{CHAIN_WIDTHS}, not t={dp.t}")
+    state = state.contiguous()
+    if nb == 0 or C == 0:
+        return state.clone()
+    cols = cols.contiguous()
+    out = torch.empty_like(state)
+    consts = dp.group_consts(state.device)
+    lib = kernels.lib("poseidon_absorb_chain")
+    rc = lib.poseidon_absorb_chain(
+        state.data_ptr(), cols.data_ptr(), out.data_ptr(), C, n, off, nb,
+        dp.t, dp.rf, dp.rp, *[c.data_ptr() for c in consts],
+        kernels.stream_ptr())
+    kernels.check(rc, f"poseidon_absorb_chain t={dp.t}")
+    kernels.launches["poseidon_absorb_chain"] += 1
     return out
 
 
@@ -161,4 +275,27 @@ def sponge_hash_ds_dynamic(ds_fields, inputs, dp: DeviceParams):
         blocks = seq[:, rate:nblocks * rate].reshape(
             B, nblocks - 1, rate, fr.N).permute(1, 0, 2, 3)
         state = absorb_blocks(state, blocks, dp)
+    return state[:, 0, :].contiguous()
+
+
+def sponge_hash_ds_legacy(inputs, ds_tag_mont, dp: DeviceParams):
+    """Batched legacy `hash_with_ds` (poseidon/src/lib.rs:85-100 of the
+    Rust reference).
+
+    The DS tag sits in the capacity element; the inputs [B, k, 8] are
+    absorbed in raw rate chunks with NO padding; digest = state[0].
+    ds_tag_mont: [8] Montgomery limbs of the tag."""
+    B, k = int(inputs.shape[0]), int(inputs.shape[1])
+    rate, t = dp.rate, dp.t
+    state = torch.zeros((B, t, fr.N), dtype=torch.int32,
+                        device=inputs.device)
+    state[:, t - 1] = ds_tag_mont
+    nb_full, rem = k // rate, k % rate
+    if nb_full:
+        blocks = inputs[:, :nb_full * rate].reshape(
+            B, nb_full, rate, fr.N).permute(1, 0, 2, 3)
+        state = absorb_blocks(state, blocks, dp)
+    if rem:
+        head = fr.add(state[:, :rem, :], inputs[:, nb_full * rate:, :])
+        state = permute(torch.cat([head, state[:, rem:, :]], dim=1), dp)
     return state[:, 0, :].contiguous()

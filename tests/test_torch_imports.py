@@ -62,6 +62,24 @@ def test_port_sources_name_no_jax_import():
                 assert "stark_mlwe_tpu." not in s, (path, s)
 
 
+def test_every_kernel_source_is_in_the_tree():
+    """Each registered source and shared header is a file under csrc/, and
+    each launch counter names a registered kernel."""
+    from stark_mlwe_tpu_torch import kernels
+    for name in kernels.SOURCES:
+        assert os.path.isfile(kernels.source_path(name)), name
+    csrc = os.path.dirname(kernels.source_path("fr_fold"))
+    for header in kernels._HEADERS:
+        assert os.path.isfile(os.path.join(csrc, header)), header
+    assert {"poseidon_absorb_chain", "poseidon_permute_group"} <= set(
+        kernels.SOURCES)
+    elementwise = {"fr_mont_mul", "fr_add", "fr_sub"}
+    assert elementwise <= set(kernels.launches)
+    for counter in set(kernels.launches) - elementwise:
+        assert any(counter.startswith(src) for src in kernels.SOURCES
+                   if src != "fr_elementwise"), counter
+
+
 def test_default_device_is_the_card():
     """`device=None` means CUDA; where there is no card it raises, and
     nothing falls back to the CPU."""

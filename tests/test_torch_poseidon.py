@@ -95,8 +95,13 @@ def test_params_from_numpy_round_trip(which):
 
 
 def test_unsupported_width_raises():
+    """The five widths of the reference are supported; any other is refused
+    before a kernel could be asked for it."""
+    assert tpos.SUPPORTED_WIDTHS == tuple(sorted(spos.RP_FOR_T))
+    odd = spos.PoseidonParams(5, 4, 8, 2, [[1] * 5] * 5, [[0] * 5] * 8,
+                              [0, 0])
     with pytest.raises(NotImplementedError):
-        tpos.device_params(spos.params_for_width(33))
+        tpos.device_params(odd)
 
 
 @pytest.mark.parametrize("which", ["t17", "t9"])

@@ -119,7 +119,8 @@ def test_blinded_prove_verifies():
     builder = sfri.DeepAliRealBuilder(r_eval_opt=r_col, use_blinding=True)
     want = sfri.deep_fri_prove(builder, w.a, w.s, w.e, w.t, 1 << 4, params)
     assert proof.roots == want.roots
-    unblinded = tstark.prove(w, params, device="cpu")
+    unblinded = sfri.deep_fri_prove(sfri.DeepAliRealBuilder(), w.a, w.s, w.e,
+                                    w.t, 1 << 4, params)
     assert unblinded.roots != proof.roots
 
 

@@ -75,6 +75,8 @@ def host_check_lib():
         lib.hc_permute.argtypes = ([u64p, ctypes.c_long]
                                    + [ctypes.c_int] * 3 + [u64p] * 6)
         lib.hc_permute.restype = ctypes.c_int
+        lib.hc_permute_group.argtypes = lib.hc_permute.argtypes
+        lib.hc_permute_group.restype = ctypes.c_int
         _HC = lib
     return _HC
 
