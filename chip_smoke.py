@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels from `stark_mlwe_tpu_torch/csrc/` (nvcc, sm_90a) and
-the host engine (g++) into `build/`, then runs four phases, one JSON line
+the host engine (g++) into `build/`, then runs five phases, one JSON line
 each, and exits non-zero as soon as one fails:
 
   device     the card (`nvidia-smi` name and power limit), versions, build
@@ -14,7 +14,12 @@ each, and exits non-zero as soon as one fails:
              also held against the host engine at its real length (4 chains
              of 4,096 rate blocks) and timed per block beside it; the
              thread-group permutation is timed at t=17 beside the
-             thread-per-state one
+             thread-per-state one.  The NTT tile kernel is compared at every
+             length from 2 to 4,096, forward and inverse, with no, a full
+             and a periodic epilogue, on contiguous and strided views, ragged
+             batches and edge values, and timed at the two launches that
+             n = 2^22 gives it (2,048 transforms of length 2,048: the
+             columns with the step twiddles, then the rows)
   golden     proofs made on the card whose sha256 of `serialize_proof` must
              equal the JAX package's, recorded in
              tests/data/torch_golden.json, and which the pure-int spec
@@ -34,6 +39,15 @@ each, and exits non-zero as soon as one fails:
              presets `hi128_64_8` [128,64,8] and `uni32x3` [32,32,32].
              Every path: prove, verify, two tampered proofs refused, phase
              times
+  ntt_path   the NTT entry points at full size, counts set to 0 before and
+             read after: `ntt` of 2^22 elements equal to the flat plain
+             transform, `intt(ntt(x)) == x`, `lde` of 2^20 values at blowup
+             4 with `out[::4] == values`, `lde` with a coset shift and
+             `ntt_four_step(256, 256)` against the flat transform, the JAX
+             package's recorded digests (`ntt_entries` of
+             tests/data/torch_golden.json), the O(n^2) sum at n = 256 in
+             Python ints, `Poly.mul` against the schoolbook product; host
+             clock times of one warmed call each
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version, its time, the plain version's
@@ -84,6 +98,9 @@ GOLDEN_ENTRIES = ["paper_k12", "paper_k11_unstructured", "wide32_k6",
                   "wide64_k7", "wide128_k8", "wide64_8_k10", "wide32_32_k11",
                   "paper_k11_device_witness"]
 WIDE_PRESETS = [("hi128_64_8", [128, 64, 8]), ("uni32x3", [32, 32, 32])]
+NTT_PATH = "ntt 2^22 + lde 2^20x4"
+NTT_GOLDEN = ["ntt_2e16", "intt_2e16", "lde_2e14_b4", "lde_2e12_b2_coset5",
+              "four_step_256x256"]
 CHAIN_REPLACES = ("stark_mlwe_tpu/ops/poseidon_chain.py:429",
                   "stark_mlwe_tpu/ops/poseidon_pallas.py:584")
 
@@ -107,6 +124,14 @@ def permute_macs(t: int, rf: int, rp: int) -> int:
     part = rp * MAC_POW5 + (rp - 1) * (
         t * MAC_ACC_MUL + MAC_REDC320 + (t - 1) * MAC_MONT_MUL)
     return full + part + dense
+
+
+def ntt_tile_macs(L: int, with_epilogue: bool) -> int:
+    """64-bit multiplies of one length-L tile transform: a Montgomery
+    product per butterfly of every stage but the first (whose twiddle is 1),
+    and one per element for the epilogue."""
+    stages = L.bit_length() - 1
+    return MAC_MONT_MUL * (L // 2 * (stages - 1) + (L if with_epilogue else 0))
 
 
 def bound(nbytes: int, macs: int):
@@ -135,9 +160,11 @@ def main(argv=None) -> int:
     from stark_mlwe_tpu_torch import fri, kernels, native
     from stark_mlwe_tpu_torch.fri import fs
     from stark_mlwe_tpu_torch.ops import fr
+    from stark_mlwe_tpu_torch.ops import ntt as dntt
     from stark_mlwe_tpu_torch.ops import poseidon as dpos
+    from stark_mlwe_tpu_torch.poly import Poly
     from stark_mlwe_tpu_torch.spec import fri as spec_fri
-    from stark_mlwe_tpu_torch.spec.field import P
+    from stark_mlwe_tpu_torch.spec.field import P, get_root_of_unity
     from stark_mlwe_tpu_torch.spec import poseidon as spos
     from stark_mlwe_tpu_torch.spec.merkle import MerkleChannelCfg
     from stark_mlwe_tpu_torch.spec.transcript import default_params
@@ -473,9 +500,94 @@ def main(argv=None) -> int:
                  "host_engine_ms_per_block": host_chain_s * 1e3 / nb_full,
                  "host_engine_chain_seconds": host_chain_s,
                  "tagged_hash_vecs_seconds": device_chain_s})
+    # K6 fr_ntt_tiles: every tile length, forward and inverse, without and
+    # with a full epilogue; then the kinds of view the recursion and the
+    # batched entry points hand it; then the two launches of n = 2^22.
+    def tiles_case(label, x, wt, ep=None, out=None):
+        got = dntt.ntt_tiles(x, wt, ep, out=out)
+        sync()
+        return check_exact(f"fr_ntt_tiles ({label})", got,
+                           dntt.ntt_tiles_plain(x, wt, ep))
+
+    err = 0
+    L = 2
+    while L <= (64 if rehearse else dntt.TILE_CAP):
+        B = 3 if L >= 512 else 37
+        for inverse in (False, True):
+            wt = dntt.stage_twiddles(L, inverse, dev)
+            x = rand_elems(B, L)
+            err = max(err, tiles_case(f"L={L}, B={B}, inverse={inverse}",
+                                      x, wt))
+            err = max(err, tiles_case(f"L={L}, B={B}, inverse={inverse}, "
+                                      f"full epilogue", x, wt,
+                                      rand_elems(B, L)))
+        L *= 2
+    for L in (64,) if rehearse else (64, 2048):
+        wt = dntt.stage_twiddles(L, False, dev)
+        err = max(err, tiles_case(f"L={L}, B=1", rand_elems(1, L), wt,
+                                  rand_elems(1, L)))
+        err = max(err, tiles_case(f"L={L}, batch 5x8, periodic epilogue",
+                                  rand_elems(5, 8, L), wt, rand_elems(8, L)))
+        err = max(err, tiles_case(f"L={L}, batch 5x8, one epilogue row",
+                                  rand_elems(5, 8, L), wt, rand_elems(1, L)))
+        # transforms down the columns of a matrix, written to another layout
+        cols = rand_elems(L, 3, 8).permute(1, 2, 0, 3)
+        out = torch.zeros((3, L, 8, 8), dtype=torch.int32,
+                          device=dev).permute(0, 2, 1, 3)
+        err = max(err, tiles_case(f"L={L}, strided in and out", cols, wt,
+                                  rand_elems(8, L), out))
+        err = max(err, tiles_case(f"L={L}, sliced batch",
+                                  rand_elems(9, L)[2:7], wt))
+        edge_rows = [[x] * L for x in (P - 1, 0, R % P)] + [
+            [edge_ints[(i + r) % len(edge_ints)] for i in range(L)]
+            for r in range(4)]
+        edge = fr.to_device(fr.pack_ints([v for row in edge_rows
+                                          for v in row]), dev
+                            ).reshape(len(edge_rows), L, 8)
+        err = max(err, tiles_case(f"L={L}, edge values", edge, wt,
+                                  edge.flip(0).contiguous()))
+    # The launches of the full-size transform: n = m1 * m2, the m2 columns
+    # (length m1, element stride m2) with the step twiddles into tmp[j1, i2];
+    # then the m1 rows (length m2) into out[j1 + m1*j2].
+    n_ntt = 1 << (8 if rehearse else 22)
+    ntt_tile = 16 if rehearse else dntt.TILE_MAX
+    m1, m2 = dntt._split(n_ntt, ntt_tile)
+    x22 = rand_elems(n_ntt)
+    wt1 = dntt.stage_twiddles(m1, False, dev)
+    wt2 = dntt.stage_twiddles(m2, False, dev)
+    ep22 = dntt.step_twiddles(n_ntt, m1, m2, False, False, dev)
+    cols = x22.reshape(m1, m2, 8).transpose(0, 1)
+    tmp = torch.empty((m1, m2, 8), dtype=torch.int32, device=dev)
+    out22 = torch.empty((m2, m1, 8), dtype=torch.int32, device=dev)
+    err = max(err, tiles_case("columns of n", cols, wt1, ep22,
+                              tmp.transpose(0, 1)))
+    err = max(err, tiles_case("rows of n", tmp, wt2, None,
+                              out22.transpose(0, 1)))
+    ms = time_ms(lambda: dntt.ntt_tiles(cols, wt1, ep22,
+                                        out=tmp.transpose(0, 1)), 5)
+    ms_rows = time_ms(lambda: dntt.ntt_tiles(tmp, wt2, None,
+                                             out=out22.transpose(0, 1)), 5)
+    pms = time_ms(lambda: dntt.ntt_tiles_plain(cols, wt1, ep22), 1)
+    bms, by = bound(32 * (3 * n_ntt + m1 // 2),
+                    m2 * ntt_tile_macs(m1, True))
+    bms_rows, by_rows = bound(32 * (2 * n_ntt + m2 // 2),
+                              m1 * ntt_tile_macs(m2, False))
+    rows.append({"name": "fr_ntt_tiles", "route": "cuda",
+                 "source": "stark_mlwe_tpu_torch/csrc/fr_ntt.cu",
+                 "replaces": "stark_mlwe_tpu/ops/ntt_pallas.py:197",
+                 "shape": f"L={m1}, B={m2}: the columns of n={n_ntt} as a "
+                          f"{m1}x{m2} matrix, with the step twiddles",
+                 "max_abs_err": err, "tolerance": 0, "ms": ms,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": None,
+                 "rows_launch": {"shape": f"L={m2}, B={m1}: its rows, no "
+                                          f"epilogue, strided store",
+                                 "ms": ms_rows, "bound_ms": bms_rows,
+                                 "bound_by": by_rows}})
+    del x22, cols, tmp, out22, ep22
     emit({"phase": "kernels", "card": card, "exact": True,
           "layouts_t17": layouts,
-          "chain": {k: rows[-1][k] for k in (
+          "chain": {k: rows[-2][k] for k in (
               "shape", "ms", "ms_per_block", "host_engine_ms_per_block",
               "host_engine_chain_seconds", "tagged_hash_vecs_seconds")},
           "kernels": [{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
@@ -621,6 +733,140 @@ def main(argv=None) -> int:
               group_kernels + ["poseidon_permute_t17", "fr_fold"] + K2)
     emit({"phase": "main_path", "witness_seconds": witness_s,
           "device_witness_equals_host_witness": True})
+
+    # ---- phase 5: the NTT path ---------------------------------------------
+    def clock(fn):
+        """Host-clock seconds of one call that ends in a synchronise, after
+        one warm-up call; also the result and the K6 launches of the call."""
+        fn()
+        sync()
+        before = kernels.launches["fr_ntt_tiles"]
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0, out,
+                kernels.launches["fr_ntt_tiles"] - before)
+
+    def same_tensor(what, a, b):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"ntt_path: {what} differ")
+
+    kernels.reset_launches()
+    dntt.clear_tables()
+    sync()
+    t_phase = time.perf_counter()
+    for inverse in (False, True):
+        dntt.step_twiddles(n_ntt, m1, m2, inverse, inverse, dev)
+        dntt.stage_twiddles(m1, inverse, dev)
+        dntt.stage_twiddles(m2, inverse, dev)
+    sync()
+    table_s = time.perf_counter() - t_phase
+    x = rand_elems(n_ntt)
+    ntt_s, y, ntt_launches = clock(lambda: dntt.ntt(x, tile_max=ntt_tile))
+    same_tensor(f"ntt and ntt_plain at n={n_ntt}", y, dntt.ntt_plain(x))
+    intt_s, back, _ = clock(lambda: dntt.intt(y, tile_max=ntt_tile))
+    same_tensor(f"intt(ntt(x)) and x at n={n_ntt}", back, x)
+    del back, y
+    # other tile lengths on the same input, a single sample each
+    tile_seconds = {}
+    if not rehearse:
+        for tile in (512, 1024, 2048):
+            tile_seconds[str(tile)], _, _ = clock(
+                lambda: dntt.ntt(x, tile_max=tile))
+    del x
+    dntt.clear_tables()
+
+    n_lde = n_ntt // 4
+    vals = rand_elems(n_lde)
+    lde_s, big, _ = clock(lambda: dntt.lde(vals, 4))
+    same_tensor("lde(values, 4)[::4] and values", big[::4], vals)
+    del big, vals
+
+    n_small = 1 << (6 if rehearse else 12)
+    vs = rand_elems(n_small)
+    shifted = fr.mont_mul(dntt.ntt_plain(vs, True), fr.powers(
+        fr.const(5, dev, mont=True), n_small))
+    same_tensor("lde with coset shift 5 and the plain transforms",
+                dntt.lde(vs, 2, coset_shift=5),
+                dntt.ntt_plain(torch.cat([shifted, torch.zeros_like(shifted)]
+                                         )))
+    side = 16 if rehearse else 256
+    xf = rand_elems(side * side)
+    flat = dntt.ntt(xf)
+    same_tensor(f"ntt_four_step({side}, {side}) and ntt",
+                dntt.ntt_four_step(xf, side, side), flat)
+    same_tensor(f"ntt and ntt_plain at n={side * side}", flat,
+                dntt.ntt_plain(xf))
+
+    def digest(t):
+        return hashlib.sha256(
+            fr.from_mont(t).contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    ntt_golden = {e["name"]: e for e in json.load(open(os.path.join(
+        ROOT, "tests", "data", "torch_golden.json")))["ntt_entries"]}
+    for name in ["lde_2e12_b2_coset5"] if rehearse else NTT_GOLDEN:
+        ent = ntt_golden[name]
+        xg = fr.to_device(fr.seeded_limbs(ent["seed"], ent["n"]), dev)
+        if ent["op"] == "ntt":
+            yg = dntt.ntt(xg)
+        elif ent["op"] == "intt":
+            yg = dntt.intt(xg)
+        elif ent["op"] == "lde":
+            yg = dntt.lde(xg, ent["blowup"], ent.get("coset_shift"))
+        else:
+            yg = dntt.ntt_four_step(xg, ent["n1"], ent["n2"])
+        if digest(yg) != ent["sha256"]:
+            raise AssertionError(f"ntt_path: golden {name}: the port's "
+                                 f"digest differs from the JAX package's")
+
+    n_naive = 256
+    cs = [int(v) for v in rng.integers(0, 1 << 62, size=n_naive)]
+    cs[:len(edge_ints)] = edge_ints
+    w = get_root_of_unity(n_naive)
+    want = [sum(c * pow(w, i * j, P) for i, c in enumerate(cs)) % P
+            for j in range(n_naive)]
+    got = fr.unpack_ints(dntt.ntt(fr.to_device(
+        fr.pack_ints(cs, mont=True), dev)), mont=True)
+    if got != want:
+        raise AssertionError("ntt_path: ntt at n=256 differs from the "
+                             "O(n^2) sum in Python ints")
+
+    na, nb = (70, 90) if rehearse else (2000, 1500)
+    pa = [int(v) << 190 | int(u) for v, u in zip(
+        rng.integers(0, 1 << 62, size=na), rng.integers(0, 1 << 62, size=na))]
+    pb = [int(v) << 190 | int(u) for v, u in zip(
+        rng.integers(0, 1 << 62, size=nb), rng.integers(0, 1 << 62, size=nb))]
+    t0 = time.perf_counter()
+    prod = Poly(pa).mul(Poly(pb), device=dev)
+    poly_s = time.perf_counter() - t0
+    school = [0] * (na + nb - 1)
+    for i, a in enumerate(pa):
+        for j, b in enumerate(pb):
+            school[i + j] += a * b
+    if prod.coeffs != Poly(school).coeffs:
+        raise AssertionError("ntt_path: Poly.mul differs from the "
+                             "schoolbook product")
+
+    counts = dict(kernels.launches)
+    by_path[NTT_PATH] = counts
+    if not rehearse:
+        missing = [n for n in ["fr_ntt_tiles", "fr_mont_mul"]
+                   if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"{NTT_PATH} launched no {missing}")
+    emit({"phase": "ntt_path", "path": NTT_PATH, "n": n_ntt,
+          "tile_max": ntt_tile, "split": [m1, m2],
+          "ntt_2e22_seconds": ntt_s, "ntt_2e22_elems_per_s": n_ntt / ntt_s,
+          "intt_2e22_seconds": intt_s, "lde_2e20_blowup4_seconds": lde_s,
+          "table_build_seconds": table_s,
+          "k6_launches_per_transform": ntt_launches,
+          "ntt_2e22_seconds_by_tile_max": tile_seconds,
+          "poly_mul_seconds": poly_s, "poly_coefficients": [na, nb],
+          "equals_plain": True, "roundtrip": True, "lde_stride_4": True,
+          "coset_and_four_step": True, "golden_matches_jax": True,
+          "naive_n256": True, "poly_mul": True,
+          "launches": {n: c for n, c in counts.items() if c},
+          "seconds": time.perf_counter() - t_phase, "card": card})
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

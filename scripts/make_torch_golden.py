@@ -10,6 +10,11 @@ An entry with `"witness": "device"` hands the four columns over as JAX
 device arrays, so the column digests come through `fs.tagged_hash_vecs`
 (the device branch of `build_f0`) instead of the host engine.
 
+`ntt_entries` are digests of the JAX package's NTT entry points
+(`ops.ntt.ntt`, `intt`, `lde`, `ntt_four_step`) on the inputs
+`fr.seeded_limbs(seed, n)` of the port, read as Montgomery form: the sha256
+of the outputs' canonical little-endian 32-byte encodings in order.
+
 Entries already in the file are kept as they are; only missing ones are
 computed.  Run from the repository root (takes minutes: XLA compiles on
 the CPU):
@@ -57,6 +62,40 @@ ENTRIES = [
      "unstructured": True, "witness": "device"},
 ]
 
+NTT_ENTRIES = [
+    {"name": "ntt_2e16", "op": "ntt", "n": 1 << 16, "seed": 2201},
+    {"name": "intt_2e16", "op": "intt", "n": 1 << 16, "seed": 2202},
+    {"name": "lde_2e14_b4", "op": "lde", "n": 1 << 14, "seed": 2203,
+     "blowup": 4},
+    {"name": "lde_2e12_b2_coset5", "op": "lde", "n": 1 << 12, "seed": 2204,
+     "blowup": 2, "coset_shift": 5},
+    {"name": "four_step_256x256", "op": "four_step", "n": 1 << 16,
+     "seed": 2205, "n1": 256, "n2": 256},
+]
+
+
+def ntt_digest(ent) -> str:
+    """One NTT entry through the JAX package on the CPU."""
+    import jax.numpy as jnp
+    import numpy as np
+    from stark_mlwe_tpu.ops import fr as jfr
+    from stark_mlwe_tpu.ops import ntt as jntt
+    from stark_mlwe_tpu_torch import convert
+    from stark_mlwe_tpu_torch.ops import fr as tfr
+
+    x = jnp.asarray(convert.to_jax_limbs(
+        tfr.seeded_limbs(ent["seed"], ent["n"])))
+    if ent["op"] == "ntt":
+        y = jntt.ntt(x)
+    elif ent["op"] == "intt":
+        y = jntt.intt(x)
+    elif ent["op"] == "lde":
+        y = jntt.lde(x, ent["blowup"], ent.get("coset_shift"))
+    else:
+        y = jntt.ntt_four_step(x, ent["n1"], ent["n2"])
+    canon = np.asarray(jfr.from_mont(y)).astype("<u2")
+    return hashlib.sha256(canon.tobytes()).hexdigest()
+
 
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -68,9 +107,13 @@ def main() -> None:
 
     path = os.path.join(ROOT, "tests", "data", "torch_golden.json")
     with open(path) as f:
-        have = {e["name"]: e for e in json.load(f)["entries"]}
+        old = json.load(f)
+    have = {e["name"]: e for e in old["entries"]}
+    have_ntt = {e["name"]: e for e in old.get("ntt_entries", [])}
     out = {"source": "stark_mlwe_tpu.stark.prove on the CPU backend",
-           "entries": []}
+           "entries": [],
+           "ntt_source": "stark_mlwe_tpu.ops.ntt on the CPU backend",
+           "ntt_entries": []}
     for ent in ENTRIES:
         if ent["name"] in have:
             out["entries"].append(have[ent["name"]])
@@ -93,6 +136,16 @@ def main() -> None:
         rec["sha256"] = hashlib.sha256(buf).hexdigest()
         out["entries"].append(rec)
         print(rec["name"], rec["proof_bytes"], rec["sha256"],
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for ent in NTT_ENTRIES:
+        if ent["name"] in have_ntt:
+            out["ntt_entries"].append(have_ntt[ent["name"]])
+            continue
+        t0 = time.perf_counter()
+        rec = dict(ent)
+        rec["sha256"] = ntt_digest(ent)
+        out["ntt_entries"].append(rec)
+        print(rec["name"], rec["sha256"],
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

@@ -1,8 +1,11 @@
 // Host build of the kernels' arithmetic (g++, no CUDA): the same `fr.cuh`,
-// `poseidon.cuh` and `poseidon_group.cuh` the CUDA kernels include, behind a
-// plain C interface, so the CPU tests can hold the device functions against
+// `poseidon.cuh`, `poseidon_group.cuh` and `ntt.cuh` the CUDA kernels include,
+// behind a plain C interface, so the CPU tests can hold the device functions against
 // the pure-Python spec where there is no card.  Not used by the prover.
 
+#include <vector>
+
+#include "ntt.cuh"
 #include "poseidon_group.cuh"
 
 static const u64 K320[4] = {0x8c46eb2100000001ULL, 0xf12aec780994a8d9ULL,
@@ -98,6 +101,44 @@ extern "C" int hc_permute_group(u64 *states, long B, int t, int rf, int rp,
     else if (t == 65) permute_group_replay<65>(s, k);
     else if (t == 129) permute_group_replay<129>(s, k);
     else return 1;
+  }
+  return 0;
+}
+
+// The NTT tile kernel of `fr_ntt.cu` with its blocks run one after another
+// and, inside a block, each step between two barriers as a loop over the
+// thread index.  The arguments are those of the CUDA entry point, with the
+// number of threads of a block in place of the stream.
+extern "C" int hc_ntt_tile(const u64 *in, u64 *out, const u64 *wt,
+                           const u64 *ep, long B, int logL, int tpb,
+                           long in_es, long out_es, long ep_period, int nlev,
+                           const long *cnt, const long *in_bs,
+                           const long *out_bs, int nthreads) {
+  if (B <= 0 || logL < 1 || tpb < 1 || nlev < 1 || nlev > NTT_MAX_LEVELS ||
+      nthreads < 1)
+    return 1;
+  NttTileArgs a{in, out, wt, ep, B, logL, tpb, in_es, out_es, ep_period, nlev,
+                {}, {}, {}};
+  for (int k = 0; k < nlev; ++k) {
+    a.cnt[k] = cnt[k];
+    a.in_bs[k] = in_bs[k];
+    a.out_bs[k] = out_bs[k];
+  }
+  std::vector<u64> shared(ntt_shared_bytes(logL, tpb) / sizeof(u64));
+  u64 *sh = shared.data();
+  long *offs = (long *)(sh + ((size_t)tpb << logL) * 4);
+  const unsigned nt = (unsigned)nthreads;
+  for (long first = 0; first < B; first += tpb) {
+    const int nvalid = B - first < tpb ? (int)(B - first) : tpb;
+    for (unsigned tid = 0; tid < nt; ++tid)
+      ntt_offsets_thread(a, first, nvalid, offs, tid, nt);
+    for (unsigned tid = 0; tid < nt; ++tid)
+      ntt_load_thread(a, nvalid, sh, offs, tid, nt);
+    for (int s = 0; s < logL; ++s)
+      for (unsigned tid = 0; tid < nt; ++tid)
+        ntt_stage_thread(a, nvalid, sh, s, tid, nt);
+    for (unsigned tid = 0; tid < nt; ++tid)
+      ntt_store_thread(a, nvalid, sh, offs, tid, nt);
   }
   return 0;
 }

@@ -23,7 +23,7 @@ import time
 from . import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_HEADERS = ("fr.cuh", "poseidon.cuh", "poseidon_group.cuh")
+_HEADERS = ("fr.cuh", "poseidon.cuh", "poseidon_group.cuh", "ntt.cuh")
 
 SOURCES = {
     "poseidon_permute": "poseidon_permute.cu",
@@ -31,6 +31,7 @@ SOURCES = {
     "fr_fold": "fr_fold.cu",
     "poseidon_absorb_chain": "poseidon_absorb_chain.cu",
     "poseidon_permute_group": "poseidon_permute_group.cu",
+    "fr_ntt": "fr_ntt.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,6 +49,7 @@ launches = {
     "poseidon_permute_group_t33": 0,
     "poseidon_permute_group_t65": 0,
     "poseidon_permute_group_t129": 0,
+    "fr_ntt_tiles": 0,
 }
 
 _libs: dict = {}
@@ -93,6 +95,11 @@ def _declare(name: str, lib) -> None:
         lib.poseidon_permute_group.argtypes = [vp, vp, l, i, i, i,
                                                vp, vp, vp, vp, vp, vp, vp]
         lib.poseidon_permute_group.restype = i
+    elif name == "fr_ntt":
+        lp = ctypes.POINTER(l)
+        lib.fr_ntt_tiles.argtypes = [vp, vp, vp, vp, l, i, i, l, l, l, i,
+                                     lp, lp, lp, vp]
+        lib.fr_ntt_tiles.restype = i
 
 
 def build_all() -> None:

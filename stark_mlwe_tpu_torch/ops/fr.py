@@ -99,6 +99,17 @@ def to_u64(arr) -> np.ndarray:
     return _host_array(arr).view("<u8")
 
 
+def seeded_limbs(seed: int, n: int) -> np.ndarray:
+    """n field elements from a numpy seed as [n, 8] int32 host limbs:
+    uniform 32-bit limbs with the top one cut to 30 bits (values below
+    2^254 < P).  Read as Montgomery form they are n uniform-looking field
+    elements; the recorded NTT digests are taken on these inputs."""
+    raw = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, N),
+                                               dtype=np.uint64)
+    raw[:, N - 1] &= 0x3FFFFFFF
+    return raw.astype(np.uint32).view(np.int32)
+
+
 def to_device(arr, device) -> torch.Tensor:
     """Host limbs -> int32 tensor on `device` (an explicit torch.device)."""
     if isinstance(arr, torch.Tensor):

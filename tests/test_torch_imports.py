@@ -15,6 +15,7 @@ PORT_MODULES = [
     "stark_mlwe_tpu_torch.kernels", "stark_mlwe_tpu_torch.convert",
     "stark_mlwe_tpu_torch.native", "stark_mlwe_tpu_torch.transcript",
     "stark_mlwe_tpu_torch.ops.fr", "stark_mlwe_tpu_torch.ops.poseidon",
+    "stark_mlwe_tpu_torch.ops.ntt", "stark_mlwe_tpu_torch.poly",
     "stark_mlwe_tpu_torch.merkle", "stark_mlwe_tpu_torch.fri",
     "stark_mlwe_tpu_torch.fri.fs", "stark_mlwe_tpu_torch.fri.deep_ali",
     "stark_mlwe_tpu_torch.stark", "stark_mlwe_tpu_torch.spec.field",
@@ -71,8 +72,10 @@ def test_every_kernel_source_is_in_the_tree():
     csrc = os.path.dirname(kernels.source_path("fr_fold"))
     for header in kernels._HEADERS:
         assert os.path.isfile(os.path.join(csrc, header)), header
-    assert {"poseidon_absorb_chain", "poseidon_permute_group"} <= set(
-        kernels.SOURCES)
+    assert {"poseidon_absorb_chain", "poseidon_permute_group",
+            "fr_ntt"} <= set(kernels.SOURCES)
+    assert "ntt.cuh" in kernels._HEADERS
+    assert "fr_ntt_tiles" in kernels.launches
     elementwise = {"fr_mont_mul", "fr_add", "fr_sub"}
     assert elementwise <= set(kernels.launches)
     for counter in set(kernels.launches) - elementwise:

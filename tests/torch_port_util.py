@@ -45,6 +45,13 @@ def port_tensor(xs, mont=False):
     return tfr.to_device(tfr.pack_ints(xs, mont=mont), "cpu")
 
 
+def seeded_elems(seed: int, *shape):
+    """Seeded field elements (`fr.seeded_limbs`) as a CPU limb tensor
+    [*shape, 8]."""
+    n = int(np.prod(shape))
+    return tfr.to_device(tfr.seeded_limbs(seed, n), "cpu").reshape(*shape, 8)
+
+
 def same(port_out, jax_out) -> bool:
     """Exact equality of a port tensor and a JAX-layout array."""
     return np.array_equal(convert.to_jax_limbs(port_out),
@@ -55,8 +62,9 @@ _HC = None
 
 
 def host_check_lib():
-    """The kernels' arithmetic (csrc/fr.cuh, csrc/poseidon.cuh) compiled
-    for the host with g++ from csrc/host_check.cpp."""
+    """The kernels' arithmetic (csrc/fr.cuh, csrc/poseidon.cuh,
+    csrc/poseidon_group.cuh, csrc/ntt.cuh) compiled for the host with g++
+    from csrc/host_check.cpp."""
     global _HC
     if _HC is None:
         import stark_mlwe_tpu_torch
@@ -77,6 +85,12 @@ def host_check_lib():
         lib.hc_permute.restype = ctypes.c_int
         lib.hc_permute_group.argtypes = lib.hc_permute.argtypes
         lib.hc_permute_group.restype = ctypes.c_int
+        longp = ctypes.POINTER(ctypes.c_long)
+        lib.hc_ntt_tile.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int,
+                                     ctypes.c_int] + [ctypes.c_long] * 3
+            + [ctypes.c_int, longp, longp, longp, ctypes.c_int])
+        lib.hc_ntt_tile.restype = ctypes.c_int
         _HC = lib
     return _HC
 
