@@ -14,9 +14,13 @@ each, and exits non-zero as soon as one fails:
              also held against the host engine at its real length (4 chains
              of 4,096 rate blocks) and timed per block beside it; the
              thread-group permutation is timed at t=17 beside the
-             thread-per-state one.  The NTT tile kernel is compared at every
-             length from 2 to 4,096, forward and inverse, with no, a full
-             and a periodic epilogue, on contiguous and strided views, ragged
+             thread-per-state one.  The chain kernel's row also gives its
+             time per block over the host engine's (medians of several
+             runs each, the host engine's samples beside them), the SASS
+             instructions of each of its instances (`cuobjdump`), and its
+             registers and spills from the compiler's report.  The NTT tile
+             kernel is compared at every length from 2 to 4,096, forward
+             and inverse, with no, a full and a periodic epilogue, on contiguous and strided views, ragged
              batches and edge values, and timed at the two launches that
              n = 2^22 gives it (2,048 transforms of length 2,048: the
              columns with the step twiddles, then the rows)
@@ -72,6 +76,8 @@ import argparse
 import hashlib
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -94,6 +100,7 @@ MAC_REDC320 = 25
 MAC_POW5 = 3 * MAC_MONT_MUL
 
 SEED = 1234
+HOST_REPS = 5                  # host-engine runs of the full chain
 GOLDEN_ENTRIES = ["paper_k12", "paper_k11_unstructured", "wide32_k6",
                   "wide64_k7", "wide128_k8", "wide64_8_k10", "wide32_32_k11",
                   "paper_k11_device_witness"]
@@ -124,6 +131,48 @@ def permute_macs(t: int, rf: int, rp: int) -> int:
     part = rp * MAC_POW5 + (rp - 1) * (
         t * MAC_ACC_MUL + MAC_REDC320 + (t - 1) * MAC_MONT_MUL)
     return full + part + dense
+
+
+def ptxas_registers(log: str) -> dict:
+    """Registers and spill bytes of each kernel instance in an
+    `nvcc -Xptxas -v` log, keyed by its width (`t17` for a template
+    argument of 17)."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)", line)
+        if m:
+            w = re.search(r"ILi(\d+)E", m.group(1))
+            key = f"t{w.group(1)}" if w else m.group(1)
+            out.setdefault(key, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            out[key]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(so: str):
+    """SASS instructions of each kernel instance in a built library, keyed
+    as in `ptxas_registers`; None where `cuobjdump` is missing."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", so], check=True, capture_output=True,
+                         text=True).stdout
+    counts, key = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            w = re.search(r"ILi(\d+)E", m.group(1))
+            key = f"t{w.group(1)}" if w else m.group(1)
+            counts[key] = 0
+        elif key and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[key] += 1
+    return counts
 
 
 def ntt_tile_macs(L: int, with_epilogue: bool) -> int:
@@ -462,9 +511,14 @@ def main(argv=None) -> int:
     nb_full = full_n // rate
     long_cols = rand_elems(C, full_n)
     long_host = host_cols(long_cols)
-    t0 = time.perf_counter()
-    want = fs.tagged_hash_cols_native(tags, long_host)
-    host_chain_s = time.perf_counter() - t0
+    # The host clock on shared cores spreads by tens of percent between
+    # runs: the host engine is timed HOST_REPS times and its median kept.
+    host_samples = []
+    for _ in range(HOST_REPS):
+        t0 = time.perf_counter()
+        want = fs.tagged_hash_cols_native(tags, long_host)
+        host_samples.append(time.perf_counter() - t0)
+    host_chain_s = statistics.median(host_samples)
     sync()
     t0 = time.perf_counter()
     got = fs.tagged_hash_vecs(tags, long_cols)
@@ -498,7 +552,14 @@ def main(argv=None) -> int:
                  "bound_ms": bms, "bound_by": by, "library_ms": None,
                  "ms_per_block": ms / nb_full,
                  "host_engine_ms_per_block": host_chain_s * 1e3 / nb_full,
+                 "ms_per_block_over_host_engine":
+                     ms / (host_chain_s * 1e3),
+                 "sass_instructions": None if rehearse else sass_counts(
+                     kernels.library_path("poseidon_absorb_chain")),
+                 "registers": ptxas_registers(kernels.build_log.get(
+                     "poseidon_absorb_chain", "")),
                  "host_engine_chain_seconds": host_chain_s,
+                 "host_engine_chain_seconds_samples": host_samples,
                  "tagged_hash_vecs_seconds": device_chain_s})
     # K6 fr_ntt_tiles: every tile length, forward and inverse, without and
     # with a full epilogue; then the kinds of view the recursion and the
@@ -589,7 +650,10 @@ def main(argv=None) -> int:
           "layouts_t17": layouts,
           "chain": {k: rows[-2][k] for k in (
               "shape", "ms", "ms_per_block", "host_engine_ms_per_block",
-              "host_engine_chain_seconds", "tagged_hash_vecs_seconds")},
+              "ms_per_block_over_host_engine", "sass_instructions",
+              "registers", "host_engine_chain_seconds",
+              "host_engine_chain_seconds_samples",
+              "tagged_hash_vecs_seconds")},
           "kernels": [{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
                                          "max_abs_err")} for r in rows],
           "seconds": time.perf_counter() - t_start})

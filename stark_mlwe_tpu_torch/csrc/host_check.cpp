@@ -1,11 +1,13 @@
 // Host build of the kernels' arithmetic (g++, no CUDA): the same `fr.cuh`,
-// `poseidon.cuh`, `poseidon_group.cuh` and `ntt.cuh` the CUDA kernels include,
-// behind a plain C interface, so the CPU tests can hold the device functions against
-// the pure-Python spec where there is no card.  Not used by the prover.
+// `poseidon.cuh`, `poseidon_group.cuh`, `ntt.cuh`, `fr32.cuh` and
+// `poseidon_chain.cuh` the CUDA kernels include, behind a plain C interface,
+// so the CPU tests can hold the device functions against the pure-Python
+// spec where there is no card.  Not used by the prover.
 
 #include <vector>
 
 #include "ntt.cuh"
+#include "poseidon_chain.cuh"
 #include "poseidon_group.cuh"
 
 static const u64 K320[4] = {0x8c46eb2100000001ULL, 0xf12aec780994a8d9ULL,
@@ -139,6 +141,87 @@ extern "C" int hc_ntt_tile(const u64 *in, u64 *out, const u64 *wt,
         ntt_stage_thread(a, nvalid, sh, s, tid, nt);
     for (unsigned tid = 0; tid < nt; ++tid)
       ntt_store_thread(a, nvalid, sh, offs, tid, nt);
+  }
+  return 0;
+}
+
+// The 32-bit carry-chain arithmetic of `fr32.cuh` (K4's): n fully reduced
+// Montgomery products, and B lazy row sums of `nterms` <= 17 products each
+// (q pre-scaled by 2^320) with one fr32_redc320.
+extern "C" void hc_fr32_mont_mul(const u32 *a, const u32 *b, u32 *out,
+                                 long n) {
+  for (long i = 0; i < n; ++i) fr32_mont_mul<true>(a + i * 8, b + i * 8,
+                                                   out + i * 8);
+}
+
+extern "C" int hc_fr32_row_dot(const u32 *q, const u32 *x, u32 *out, long B,
+                               int nterms) {
+  if (nterms < 1 || nterms > 17) return 1;
+  for (long b = 0; b < B; ++b) {
+    u32 acc[FR32_ACC] = {0};
+    for (int j = 0; j < nterms; ++j)
+      fr32_acc_mul(q + (b * nterms + j) * 8, x + (b * nterms + j) * 8, acc);
+    fr32_redc320(acc, out + b * 8);
+  }
+  return 0;
+}
+
+// The exchange policy of `poseidon_chain.cuh` for one thread that runs all
+// 32 lanes of the warp one after another: slot i is lane i, and a shuffle is
+// a read of the other lane's slot.  With it `poseidon_permute_warp` is the
+// kernel's own routine, step by step in the kernel's order; the butterfly
+// runs level by level over all 32 lanes.
+struct PcLanes {
+  static constexpr int N = 32;
+  int lane(int i) const { return i; }
+  template <int K>
+  static void bcast(u32 (*v)[K], int src, u32 (*o)[K]) {
+    for (int i = 0; i < N; ++i)
+      for (int w = 0; w < K; ++w) o[i][w] = v[src][w];
+  }
+  template <int K>
+  static void xor_swap(u32 (*v)[K], int d, u32 (*o)[K]) {
+    for (int i = 0; i < N; ++i)
+      for (int w = 0; w < K; ++w) o[i][w] = v[i ^ d][w];
+  }
+};
+
+template <int T>
+static void absorb_chain_replay(const u32 *state_in, const u32 *cols,
+                                u32 *state_out, long c, long n, long off,
+                                long nb, const ChainConsts &k) {
+  constexpr int RATE = T - 1;
+  u32 x[32][8] = {};
+  for (int lane = 0; lane < T; ++lane)
+    fr32_load(state_in + (c * T + lane) * 8, x[lane]);
+  for (long b = 0; b < nb; ++b) {
+    const u32 *blk = cols + (c * n + off + b * RATE) * 8;
+    for (int lane = 0; lane < RATE; ++lane)
+      fr32_add(x[lane], blk + lane * 8, x[lane]);
+    poseidon_permute_warp<T>(x, PcLanes{}, k);
+  }
+  for (int lane = 0; lane < T; ++lane)
+    for (int l = 0; l < 8; ++l) state_out[(c * T + lane) * 8 + l] = x[lane][l];
+}
+
+// The arguments of the CUDA entry point `poseidon_absorb_chain`, without the
+// stream; the chains run one after another.
+extern "C" int hc_absorb_chain(const u32 *state_in, const u32 *cols,
+                               u32 *state_out, int C, long n, long off,
+                               long nb, int t, int rf, int rp,
+                               const u32 *mdsT, const u32 *rc_full,
+                               const u32 *rc_part, const u32 *qrow,
+                               const u32 *qcol, const u32 *mfinalT) {
+  ChainConsts k{mdsT, rc_full, rc_part, qrow, qcol, mfinalT, rf, rp};
+  if (C <= 0 || nb < 0 || off < 0 || off + nb * (t - 1) > n || rp < 1 ||
+      (rf & 1))
+    return 1;
+  for (long c = 0; c < C; ++c) {
+    if (t == 9) absorb_chain_replay<9>(state_in, cols, state_out, c, n, off,
+                                       nb, k);
+    else if (t == 17) absorb_chain_replay<17>(state_in, cols, state_out, c, n,
+                                              off, nb, k);
+    else return 1;
   }
   return 0;
 }

@@ -1,10 +1,10 @@
 // One Poseidon x^5 permutation held by a GROUP of threads: thread i owns
 // state element i, the state is published through shared memory.
 //
-// This is the layout of K4 `poseidon_absorb_chain` (a few long sequential
-// chains: one thread per state would leave the card to four threads) and of
-// K5 `poseidon_permute_group` (widths 33, 65, 129: a state plus scratch no
-// longer fits one thread).  Same rounds, same sparse partial rounds, same
+// This is the layout of K5 `poseidon_permute_group` (widths 33, 65, 129: a
+// state plus scratch no longer fits one thread).  K4 `poseidon_absorb_chain`
+// no longer uses it: the chain kernel holds a state in one warp's registers
+// (`poseidon_chain.cuh`, on the 32-bit arithmetic of `fr32.cuh`).  Same rounds, same sparse partial rounds, same
 // lazy 576-bit row sums with ONE fr_redc320 per output as `poseidon.cuh`, so
 // the result is bit-identical to K1 `poseidon_permute` and to the host engine.
 //

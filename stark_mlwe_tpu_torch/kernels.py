@@ -23,7 +23,8 @@ import time
 from . import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_HEADERS = ("fr.cuh", "poseidon.cuh", "poseidon_group.cuh", "ntt.cuh")
+_HEADERS = ("fr.cuh", "poseidon.cuh", "poseidon_group.cuh", "ntt.cuh",
+            "fr32.cuh", "poseidon_chain.cuh")
 
 SOURCES = {
     "poseidon_permute": "poseidon_permute.cu",
@@ -65,6 +66,11 @@ def reset_launches() -> None:
 
 def source_path(name: str) -> str:
     return os.path.join(_CSRC, SOURCES[name])
+
+
+def library_path(name: str) -> str:
+    """Where the library built from source `name` lies."""
+    return os.path.join(_build.build_dir(), f"lib{name}.so")
 
 
 def _nvcc() -> str:
@@ -110,20 +116,18 @@ def build_all() -> None:
         if len(_libs) == len(SOURCES):
             return
         t0 = time.perf_counter()
-        bdir = _build.build_dir()
         deps = [os.path.join(_CSRC, h) for h in _HEADERS]
         jobs = {}
         for name in SOURCES:
-            so = os.path.join(bdir, f"lib{name}.so")
+            so = library_path(name)
             src = source_path(name)
             if _build.stale(so, [src] + deps):
                 jobs[name] = _build.start(
                     [_nvcc()] + NVCC_FLAGS + ["-o", so, src], so)
         for name, job in jobs.items():
-            so = os.path.join(bdir, f"lib{name}.so")
-            build_log[name] = _build.finish(job, so)
+            build_log[name] = _build.finish(job, library_path(name))
         for name in SOURCES:
-            lib = ctypes.CDLL(os.path.join(bdir, f"lib{name}.so"))
+            lib = ctypes.CDLL(library_path(name))
             _declare(name, lib)
             _libs[name] = lib
         build_seconds = time.perf_counter() - t0

@@ -15,8 +15,9 @@ constant-matrix apply per round), which runs on any device and is what the
 kernels are held against.
 
 `absorb_chain` launches K4 `poseidon_absorb_chain`
-(csrc/poseidon_absorb_chain.cu): C sponge chains of nb sequential (add rate
-block, permute) steps in one launch, in place of the Pallas kernels
+(csrc/poseidon_absorb_chain.cu; one warp per chain, the state in registers,
+32-bit carry-chain field products): C sponge chains of nb sequential (add
+rate block, permute) steps in one launch, in place of the Pallas kernels
 `absorb_chain` (ops/poseidon_pallas.py) and `absorb_chain_lanes`
 (ops/poseidon_chain.py).  Its plain version is `absorb_chain_plain`.
 
@@ -72,9 +73,10 @@ class DeviceParams:
         return self._kernel[key]
 
     def group_consts(self, device):
-        """The constants of the thread-group kernels (K4, K5): those of
-        `kernel_consts` with the two dense matrices transposed, so that the
-        threads of a warp, one per row, read neighbouring elements."""
+        """The constants of K5 (a thread per element) and K4 (a lane per
+        element): those of `kernel_consts` with the two dense matrices
+        transposed, so that the threads of a warp, one per row, read
+        neighbouring elements."""
         key = str(device)
         if key not in self._group:
             mds, rcf, rcp, qrow, qcol, mfin = self.kernel_consts(device)

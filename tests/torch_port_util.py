@@ -63,8 +63,9 @@ _HC = None
 
 def host_check_lib():
     """The kernels' arithmetic (csrc/fr.cuh, csrc/poseidon.cuh,
-    csrc/poseidon_group.cuh, csrc/ntt.cuh) compiled for the host with g++
-    from csrc/host_check.cpp."""
+    csrc/poseidon_group.cuh, csrc/ntt.cuh, csrc/fr32.cuh,
+    csrc/poseidon_chain.cuh) compiled for the host with g++ from
+    csrc/host_check.cpp."""
     global _HC
     if _HC is None:
         import stark_mlwe_tpu_torch
@@ -91,6 +92,15 @@ def host_check_lib():
                                      ctypes.c_int] + [ctypes.c_long] * 3
             + [ctypes.c_int, longp, longp, longp, ctypes.c_int])
         lib.hc_ntt_tile.restype = ctypes.c_int
+        vp, c_int, c_long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.hc_fr32_mont_mul.argtypes = [vp, vp, vp, c_long]
+        lib.hc_fr32_mont_mul.restype = None
+        lib.hc_fr32_row_dot.argtypes = [vp, vp, vp, c_long, c_int]
+        lib.hc_fr32_row_dot.restype = c_int
+        lib.hc_absorb_chain.argtypes = ([vp, vp, vp, c_int, c_long, c_long,
+                                         c_long, c_int, c_int, c_int]
+                                        + [vp] * 6)
+        lib.hc_absorb_chain.restype = c_int
         _HC = lib
     return _HC
 
