@@ -10,11 +10,15 @@ each, and exits non-zero as soon as one fails:
   device     the card (`nvidia-smi` name and power limit), versions, build
   kernels    every kernel against its plain PyTorch version on the card,
              exact equality, at the shapes the prover gives it and on
-             worst-case inputs; times by CUDA events.  The chain kernel is
-             also held against the host engine at its real length (4 chains
-             of 4,096 rate blocks) and timed per block beside it; the
-             thread-group permutation is timed at t=17 beside the
-             thread-per-state one.  The chain kernel's row also gives its
+             worst-case inputs; times by CUDA events.  K1's two layouts (a
+             warp per state, a thread per state) are each held against the
+             plain version, the edge values and the spec at t=17 and t=9,
+             and swept over batch sizes side by side (`k1_sweep`: the ms of
+             each layout, medians of 5, and the two outputs compared
+             exactly at every size), which is where `WARP_MAX_B` comes
+             from.  The chain kernel is also held against the host engine
+             at its real length (4 chains of 4,096 rate blocks) and timed
+             per block beside it; its row also gives its
              time per block over the host engine's (medians of several
              runs each, the host engine's samples beside them), the SASS
              instructions of each of its instances (`cuobjdump`), and its
@@ -133,17 +137,22 @@ def permute_macs(t: int, rf: int, rp: int) -> int:
     return full + part + dense
 
 
+def kernel_key(mangled: str) -> str:
+    """`poseidon_permute_warp_kernel<17>` for the mangled name of that
+    template instance; other names as they are."""
+    m = re.match(r"_Z\d+(\w+?)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
 def ptxas_registers(log: str) -> dict:
     """Registers and spill bytes of each kernel instance in an
-    `nvcc -Xptxas -v` log, keyed by its width (`t17` for a template
-    argument of 17)."""
+    `nvcc -Xptxas -v` log, keyed by `kernel_key`."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([^' ]+)", line)
         if m:
-            w = re.search(r"ILi(\d+)E", m.group(1))
-            key = f"t{w.group(1)}" if w else m.group(1)
+            key = kernel_key(m.group(1))
             out.setdefault(key, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -167,8 +176,7 @@ def sass_counts(so: str):
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            w = re.search(r"ILi(\d+)E", m.group(1))
-            key = f"t{w.group(1)}" if w else m.group(1)
+            key = kernel_key(m.group(1))
             counts[key] = 0
         elif key and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
             counts[key] += 1
@@ -367,54 +375,96 @@ def main(argv=None) -> int:
                  "tolerance": 0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
                  "bound_by": by, "library_ms": None})
 
-    # K1 poseidon_permute, t = 17 (transcript parameters: the leaf hash of
-    # layer 0 is one permutation per leaf) and t = 9 (the arity-8 and
-    # arity-2 trees; 32 parents is the largest level the paper schedule
-    # gives it at k = 16, 256 is checked as well).
-    for t, params, B_main, B_extra in (
-            (17, default_params(), full_n, 1001),
-            (9, MerkleChannelCfg.new(8).params, 32, 256)):
-        dp = dpos.device_params(params)
-        if rehearse:
-            B_main, B_extra = 5, 3
-        st = rand_elems(B_main, t)
-        name = f"poseidon_permute_t{t}"
-        out_k = dpos.permute(st, dp)
-        sync()
-        err = check_exact(name, out_k, dpos.permute_plain(st, dp))
-        st2 = rand_elems(B_extra, t)
-        err = max(err, check_exact(f"{name} (B={B_extra})",
-                                   dpos.permute(st2, dp),
-                                   dpos.permute_plain(st2, dp)))
-        edge = fr.to_device(fr.pack_ints(
-            [v for x in edge_ints for v in [x] * t]), dev).reshape(-1, t, 8)
-        err = max(err, check_exact(f"{name} (edge values)",
-                                   dpos.permute(edge, dp),
-                                   dpos.permute_plain(edge, dp)))
-        if t == 17:
-            # the second oracle: the pure-int spec on a few states
-            few = fr.unpack_ints(st[:3], mont=True)
-            want = [v for i in range(3)
-                    for v in spos.permute(few[i * t:(i + 1) * t], params)]
-            if fr.unpack_ints(out_k[:3], mont=True) != want:
-                raise AssertionError(f"{name}: disagrees with the spec")
-        ms = time_ms(lambda: dpos.permute(st, dp), 5)
-        pms = time_ms(lambda: dpos.permute_plain(st, dp), 2)
-        bms, by = bound(2 * 32 * t * B_main,
-                        B_main * permute_macs(t, params.rf, params.rp))
-        row = {"name": name, "route": "cuda",
-               "source": "stark_mlwe_tpu_torch/csrc/poseidon_permute.cu",
-               "replaces": "stark_mlwe_tpu/ops/poseidon_pallas.py:486",
-               "shape": f"B={B_main}, t={t}", "max_abs_err": err, "ms": ms,
-               "plain_ms": pms, "tolerance": 0, "bound_ms": bms,
-               "bound_by": by, "library_ms": None}
-        if not rehearse:
-            row[f"ms_B{B_extra}"] = time_ms(lambda: dpos.permute(st2, dp), 5)
-        rows.append(row)
-
     def edge_states(t):
         return fr.to_device(fr.pack_ints(
             [v for x in edge_ints for v in [x] * t]), dev).reshape(-1, t, 8)
+
+    # K1, t = 17 (transcript parameters: the leaf hash of layer 0 is one
+    # permutation per leaf, and the tree levels of arity 16) and t = 9 (the
+    # arity-8 and arity-2 trees).  Both layouts are called directly, so each
+    # is held whatever `permute_layout` picks: random states, edge values,
+    # the spec on a few states.  Rows at the batches the prove paths give
+    # each layout: the thread layout at the layer-0 leaf hash (65,536 states
+    # of t=17), the warp layout at the tree levels (256 and 4,096 states of
+    # t=17, 32 and 2,048 of t=9).  No prove path gives t=9 a batch above
+    # WARP_MAX_B[9], so no main path launches the t=9 thread layout: it is
+    # held and timed at 65,536 states, and its row says so.
+    k1_rows = ((17, "thread", full_n), (17, "warp", 256), (17, "warp", 4096),
+               (9, "thread", full_n), (9, "warp", 32), (9, "warp", 2048))
+    k1_off_path = {(9, "thread")}
+    k1_params = {17: default_params(), 9: MerkleChannelCfg.new(8).params}
+    k1_errs = {}
+    for t, params in k1_params.items():
+        dp = dpos.device_params(params)
+        st = rand_elems(5 if rehearse else 1001, t)
+        edge = edge_states(t)
+        want, want_edge = dpos.permute_plain(st, dp), dpos.permute_plain(
+            edge, dp)
+        few = fr.unpack_ints(st[:3], mont=True)
+        spec = [v for i in range(3)
+                for v in spos.permute(few[i * t:(i + 1) * t], params)]
+        for layout in dpos.K1_LAYOUTS:
+            name = dpos.k1_counter(t, layout)
+            got = dpos.permute_k1(st, dp, layout)
+            sync()
+            err = check_exact(name, got, want)
+            err = max(err, check_exact(f"{name} (edge values)",
+                                       dpos.permute_k1(edge, dp, layout),
+                                       want_edge))
+            if fr.unpack_ints(got[:3], mont=True) != spec:
+                raise AssertionError(f"{name}: disagrees with the spec")
+            k1_errs[name] = err
+    k1_states = {}
+    for t, layout, B in k1_rows:
+        if rehearse:
+            B = min(B, 7)
+        dp = dpos.device_params(k1_params[t])
+        name = dpos.k1_counter(t, layout)
+        if (t, B) not in k1_states:
+            st = rand_elems(B, t)
+            k1_states[t, B] = (st, dpos.permute_plain(st, dp),
+                               time_ms(lambda: dpos.permute_plain(st, dp), 1))
+        st, want, pms = k1_states[t, B]
+        err = max(k1_errs[name], check_exact(
+            f"{name} (B={B})", dpos.permute_k1(st, dp, layout), want))
+        ms = time_ms(lambda: dpos.permute_k1(st, dp, layout), 5)
+        bms, by = bound(2 * 32 * t * B,
+                        B * permute_macs(t, k1_params[t].rf, k1_params[t].rp))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "stark_mlwe_tpu_torch/csrc/poseidon_permute.cu",
+                     "replaces": "stark_mlwe_tpu/ops/poseidon_pallas.py:486",
+                     "layout": layout, "shape": f"B={B}, t={t}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "tolerance": 0, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None,
+                     "registers": {k: v for k, v in ptxas_registers(
+                         kernels.build_log.get("poseidon_permute", "")
+                     ).items() if k.startswith(
+                         "poseidon_permute_warp_kernel" if layout == "warp"
+                         else "poseidon_permute_kernel")}})
+        if (t, layout) in k1_off_path:
+            rows[-1] |= {"main_path": False, "note":
+                         f"no prove path gives t={t} a batch above "
+                         f"WARP_MAX_B[{t}] = {dpos.WARP_MAX_B[t]}"}
+    del k1_states
+    # The two layouts side by side over batch sizes: the crossover.
+    k1_sweep = {}
+    for t, sizes in ((17, (1, 16, 32, 256, 528, 1024, 2048, 4096, 8192,
+                           16384, 65536)),
+                     (9, (1, 32, 256, 512, 1024, 2048, 4096, 8192, 16384,
+                          65536))):
+        dp = dpos.device_params(k1_params[t])
+        for B in (sizes[:3] if rehearse else sizes):
+            st = rand_elems(B, t)
+            check_exact(f"K1 t={t} B={B}: the warp layout against the "
+                        f"thread layout", dpos.permute_k1(st, dp, "warp"),
+                        dpos.permute_k1(st, dp, "thread"))
+            k1_sweep[f"t={t}, B={B}"] = {
+                layout + "_ms": time_ms(
+                    lambda: dpos.permute_k1(st, dp, layout), 5)
+                for layout in dpos.K1_LAYOUTS} | {
+                "layouts_equal": True,
+                "dispatch": dpos.permute_layout(B, t)}
 
     # K5 poseidon_permute_group, t = 33, 65, 129: the tree levels of arity
     # 32, 64 and 128.  Timed at the largest level a k=16 preset gives each
@@ -461,20 +511,7 @@ def main(argv=None) -> int:
                      "library_ms": None,
                      "ms_B1": time_ms(lambda: dpos.permute(one_state, dp), 5)})
 
-    # The two layouts side by side at t = 17: K1 (a thread per state) and
-    # K5's routine (a thread per element).  The prover keeps K1 there.
     dp17 = dpos.device_params(default_params())
-    layouts = {}
-    for B in ((5,) if rehearse else (32, full_n)):
-        st = rand_elems(B, 17)
-        check_exact(f"poseidon_permute_group_t17 (B={B}) against "
-                    f"poseidon_permute_t17", dpos.permute_group(st, dp17),
-                    dpos.permute(st, dp17))
-        layouts[f"B={B}"] = {
-            "thread_per_state_ms": time_ms(lambda: dpos.permute(st, dp17), 5),
-            "thread_per_element_ms":
-                time_ms(lambda: dpos.permute_group(st, dp17), 5)}
-
     # K4 poseidon_absorb_chain: against its plain version on short chains
     # (the plain version takes about a second per block on the card), a
     # ragged column through `tagged_hash_vecs` against the host engine, and
@@ -647,7 +684,7 @@ def main(argv=None) -> int:
                                  "bound_by": by_rows}})
     del x22, cols, tmp, out22, ep22
     emit({"phase": "kernels", "card": card, "exact": True,
-          "layouts_t17": layouts,
+          "k1_sweep": k1_sweep,
           "chain": {k: rows[-2][k] for k in (
               "shape", "ms", "ms_per_block", "host_engine_ms_per_block",
               "ms_per_block_over_host_engine", "sass_instructions",
@@ -769,8 +806,10 @@ def main(argv=None) -> int:
               "card": card})
         return buf
 
-    paper_kernels = ["poseidon_permute_t17", "poseidon_permute_t9",
-                     "fr_fold"] + K2
+    # K1 by layout (`permute_layout`): the layer-0 leaf hash (65,536 states
+    # of t=17) takes the thread layout, every tree level the warp layout.
+    paper_kernels = ["poseidon_permute_t17", "poseidon_permute_warp_t17",
+                     "poseidon_permute_warp_t9", "fr_fold"] + K2
     buf_host = drive("paper, host witness", paper,
                      lambda: prove(witness, paper, device=dev),
                      paper_kernels)
@@ -786,9 +825,9 @@ def main(argv=None) -> int:
             if rehearse else
             [(WIDE_PRESETS[0][0], WIDE_PRESETS[0][1],
               ["poseidon_permute_group_t129", "poseidon_permute_group_t65",
-               "poseidon_permute_t9"]),
+               "poseidon_permute_warp_t9"]),
              (WIDE_PRESETS[1][0], WIDE_PRESETS[1][1],
-              ["poseidon_permute_group_t33", "poseidon_permute_t9"])])
+              ["poseidon_permute_group_t33", "poseidon_permute_warp_t9"])])
     for preset, schedule, group_kernels in wide:
         wparams = DeepFriParams(schedule=schedule, r=paper.r,
                                 seed_z=0xDEEFBAAD)
@@ -935,7 +974,7 @@ def main(argv=None) -> int:
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        if not rehearse and r["launches"] == 0:
+        if not rehearse and r["launches"] == 0 and r.get("main_path", True):
             raise AssertionError(f"no main path launched {r['name']}")
     if rehearse:
         emit({"kernels": rows})

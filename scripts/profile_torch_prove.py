@@ -10,9 +10,11 @@ branch of `build_f0`), once to warm up (kernel build, constants), then once more
 `torch.profiler` (CPU + CUDA activities) and prints one JSON line: wall
 seconds of the traced prove, seconds the card was busy (sum of device time
 over all kernels and copies), the idle share, and device time by kernel
-name.  A second untraced prove is timed as well, so the cost of tracing
-shows.  With `--out` the chrome trace is written there.  Needs a CUDA
-device; exits with code 2 without one.
+name, with the launches of the traced prove by counter
+(`kernels.launches`: K1's two layouts apart).  A second untraced prove is
+timed as well, so the cost of tracing shows.  With `--out` the chrome
+trace is written there.  Needs a CUDA device; exits with code 2 without
+one.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
 
-    from stark_mlwe_tpu_torch import fri
+    from stark_mlwe_tpu_torch import fri, kernels
     from stark_mlwe_tpu_torch.stark import DeepFriParams, MlweWitness, prove
 
     card = subprocess.run(
@@ -68,6 +70,7 @@ def main() -> int:
     warm = timed()
     plain = timed()
     phases = dict(fri.phase_seconds)
+    kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced = timed()
@@ -93,7 +96,8 @@ def main() -> int:
         "prove_seconds": plain, "traced_prove_seconds": traced,
         "device_busy_seconds": busy,
         "device_idle_share": (1.0 - busy / traced) if busy else None,
-        "phase_seconds": phases, "device_ms_by_kernel": top}))
+        "phase_seconds": phases, "device_ms_by_kernel": top,
+        "launches": {n: c for n, c in kernels.launches.items() if c}}))
     return 0
 
 

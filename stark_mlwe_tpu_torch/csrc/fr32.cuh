@@ -1,5 +1,6 @@
 // Pallas scalar field Fr on 8x32-bit Montgomery limbs (R = 2^256), written as
-// carry chains.  Included by K4 `poseidon_absorb_chain` only.
+// carry chains.  Included by K4 `poseidon_absorb_chain` and by both layouts
+// of K1 `poseidon_permute` (through `poseidon_chain.cuh` and `poseidon.cuh`).
 //
 // An element is `u32[8]`, little-endian: the same bytes as the port's
 // `[..., 8] int32` layout and as the `u64[4]` of `fr.cuh`, so no tensor or

@@ -7,6 +7,7 @@
 #include <vector>
 
 #include "ntt.cuh"
+#include "poseidon.cuh"
 #include "poseidon_chain.cuh"
 #include "poseidon_group.cuh"
 
@@ -36,14 +37,20 @@ void hc_fold(const u64 *f, const u64 *zpow, u64 *out, long nout, int m) {
   }
 }
 
+// The thread layout of K1 (`poseidon.cuh`, on `fr32.cuh`), one state after
+// another; the constants of `native.pack_params` (the bytes of u64[4] and
+// u32[8] are the same).
 int hc_permute(u64 *states, long B, int t, int rf, int rp, const u64 *mds,
                const u64 *rc_full, const u64 *rc_part, const u64 *qrow,
                const u64 *qcol, const u64 *mfinal) {
-  PoseidonConsts k{mds, rc_full, rc_part, qrow, qcol, mfinal, rf, rp};
-  u64 nxt[17 * 4];
+  PoseidonConsts k{(const u32 *)mds,  (const u32 *)rc_full,
+                   (const u32 *)rc_part, (const u32 *)qrow,
+                   (const u32 *)qcol, (const u32 *)mfinal, rf, rp};
+  u32 nxt[17 * 8];
   for (long b = 0; b < B; ++b) {
-    if (t == 17) poseidon_permute_one<17>(states + b * t * 4, nxt, k);
-    else if (t == 9) poseidon_permute_one<9>(states + b * t * 4, nxt, k);
+    u32 *s = (u32 *)(states + b * t * 4);
+    if (t == 17) poseidon_permute_one<17>(s, nxt, k);
+    else if (t == 9) poseidon_permute_one<9>(s, nxt, k);
     else return 1;
   }
   return 0;
@@ -221,6 +228,33 @@ extern "C" int hc_absorb_chain(const u32 *state_in, const u32 *cols,
                                        nb, k);
     else if (t == 17) absorb_chain_replay<17>(state_in, cols, state_out, c, n,
                                               off, nb, k);
+    else return 1;
+  }
+  return 0;
+}
+
+// The warp layout of K1: `poseidon_permute_warp` run over the 32 lanes of
+// `PcLanes` for each state, lanes at or beyond t holding zeros as on the
+// card.  The arguments of the CUDA entry point `poseidon_permute_warp`
+// without the stream: the constants of `DeviceParams.group_consts`.
+template <int T>
+static void permute_warp_replay(u32 *state, const ChainConsts &k) {
+  u32 x[32][8] = {};
+  for (int lane = 0; lane < T; ++lane) fr32_load(state + lane * 8, x[lane]);
+  poseidon_permute_warp<T>(x, PcLanes{}, k);
+  for (int lane = 0; lane < T; ++lane)
+    for (int l = 0; l < 8; ++l) state[lane * 8 + l] = x[lane][l];
+}
+
+extern "C" int hc_permute_warp(u32 *states, long B, int t, int rf, int rp,
+                               const u32 *mdsT, const u32 *rc_full,
+                               const u32 *rc_part, const u32 *qrow,
+                               const u32 *qcol, const u32 *mfinalT) {
+  ChainConsts k{mdsT, rc_full, rc_part, qrow, qcol, mfinalT, rf, rp};
+  if (B <= 0 || rp < 1 || (rf & 1)) return 1;
+  for (long b = 0; b < B; ++b) {
+    if (t == 17) permute_warp_replay<17>(states + b * t * 8, k);
+    else if (t == 9) permute_warp_replay<9>(states + b * t * 8, k);
     else return 1;
   }
   return 0;

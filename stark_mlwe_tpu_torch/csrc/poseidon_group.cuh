@@ -5,7 +5,7 @@
 // state plus scratch no longer fits one thread).  K4 `poseidon_absorb_chain`
 // no longer uses it: the chain kernel holds a state in one warp's registers
 // (`poseidon_chain.cuh`, on the 32-bit arithmetic of `fr32.cuh`).  Same rounds, same sparse partial rounds, same
-// lazy 576-bit row sums with ONE fr_redc320 per output as `poseidon.cuh`, so
+// lazy row sums with ONE 2^320 reduction per output as `poseidon.cuh`, so
 // the result is bit-identical to K1 `poseidon_permute` and to the host engine.
 //
 // Per round:
@@ -39,7 +39,7 @@
 
 #pragma once
 
-#include "poseidon.cuh"
+#include "fr.cuh"
 
 struct PoseidonGroupConsts {
   const u64 *mdsT;     // t*t*4, transposed, 2^320-scaled

@@ -12,9 +12,7 @@
 // against ~3e6 64-bit multiply-adds at t = 129, so the kernel is bound by
 // integer operations.  Each block streams the dense matrix (532 KB at
 // t = 129) nine times from L2; sharing one pass between several states of a
-// block is the next step and is left to a later change.  The instantiation
-// at t = 17 exists to be timed beside K1 `poseidon_permute`, which keeps that
-// width on the prover's path.
+// block is the next step and is left to a later change.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +57,6 @@ extern "C" int poseidon_permute_group(const void *in, void *out, long B, int t,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (t) {
-    case 17: return launch<17>(in, out, B, k, s);
     case 33: return launch<33>(in, out, B, k, s);
     case 65: return launch<65>(in, out, B, k, s);
     case 129: return launch<129>(in, out, B, k, s);

@@ -41,12 +41,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = {
     "poseidon_permute_t17": 0,
     "poseidon_permute_t9": 0,
+    "poseidon_permute_warp_t17": 0,
+    "poseidon_permute_warp_t9": 0,
     "fr_mont_mul": 0,
     "fr_add": 0,
     "fr_sub": 0,
     "fr_fold": 0,
     "poseidon_absorb_chain": 0,
-    "poseidon_permute_group_t17": 0,
     "poseidon_permute_group_t33": 0,
     "poseidon_permute_group_t65": 0,
     "poseidon_permute_group_t129": 0,
@@ -87,6 +88,8 @@ def _declare(name: str, lib) -> None:
         lib.poseidon_permute.argtypes = [vp, vp, l, i, i, i,
                                          vp, vp, vp, vp, vp, vp, vp]
         lib.poseidon_permute.restype = i
+        lib.poseidon_permute_warp.argtypes = lib.poseidon_permute.argtypes
+        lib.poseidon_permute_warp.restype = i
     elif name == "fr_elementwise":
         lib.fr_elementwise.argtypes = [i, vp, vp, vp, l, i, i, vp]
         lib.fr_elementwise.restype = i

@@ -4,8 +4,10 @@ Counterpart of `ops/poseidon.py` of the JAX package, bit-exact against the
 golden spec in `spec.poseidon`.  State batches are `[B, t, 8]` Montgomery
 limb tensors.
 
-`permute` launches K1 `poseidon_permute` (csrc/poseidon_permute.cu; one
-thread per state) at widths t = 17 and t = 9 and K5 `poseidon_permute_group`
+`permute` launches K1 (csrc/poseidon_permute.cu) at widths t = 17 and t = 9,
+in the layout `permute_layout` picks by the batch size: one warp per state
+(`poseidon_permute_warp`) up to `WARP_MAX_B[t]` states, one thread per state
+(`poseidon_permute`) above; and K5 `poseidon_permute_group`
 (csrc/poseidon_permute_group.cu; one thread per state element) at t = 33, 65
 and 129.  Together they replace the Pallas kernels `_permute_tiles`
 (ops/poseidon_pallas.py of the JAX package) and `_permute_tiles_wide`
@@ -36,9 +38,16 @@ from ..spec.poseidon import PoseidonParams
 from . import fr
 
 SUPPORTED_WIDTHS = (9, 17, 33, 65, 129)
-THREAD_PER_STATE_WIDTHS = (9, 17)     # K1; the wider ones go to K5
-GROUP_WIDTHS = (17, 33, 65, 129)      # K5 (17 only to be timed beside K1)
+K1_WIDTHS = (9, 17)                   # K1; the wider ones go to K5
+GROUP_WIDTHS = (33, 65, 129)          # K5
 CHAIN_WIDTHS = (9, 17)                # K4
+K1_LAYOUTS = ("warp", "thread")
+
+# The largest batch K1 runs with a warp per state; above it the thread layout
+# is faster.  From `chip_smoke.py`'s sweep of both layouts on an H100 (PERF.md,
+# K1 rows): the warp layout wins at 4,096 states of t=17 and loses at 8,192,
+# wins at 2,048 of t=9 and loses at 4,096.
+WARP_MAX_B = {17: 4096, 9: 2048}
 
 
 class DeviceParams:
@@ -73,10 +82,10 @@ class DeviceParams:
         return self._kernel[key]
 
     def group_consts(self, device):
-        """The constants of K5 (a thread per element) and K4 (a lane per
-        element): those of `kernel_consts` with the two dense matrices
-        transposed, so that the threads of a warp, one per row, read
-        neighbouring elements."""
+        """The constants of K5 (a thread per element), K4 and K1's warp
+        layout (a lane per element): those of `kernel_consts` with the two
+        dense matrices transposed, so that the threads of a warp, one per
+        row, read neighbouring elements."""
         key = str(device)
         if key not in self._group:
             mds, rcf, rcp, qrow, qcol, mfin = self.kernel_consts(device)
@@ -140,25 +149,57 @@ def _check_states(state: torch.Tensor, dp: DeviceParams, what: str) -> None:
                         f"got {tuple(state.shape)} {state.dtype}")
 
 
+def permute_layout(B: int, t: int) -> str:
+    """K1's layout for a batch of B states of width t: "warp" (a warp per
+    state) up to `WARP_MAX_B[t]`, "thread" (a thread per state) above."""
+    return "warp" if B <= WARP_MAX_B[t] else "thread"
+
+
 def permute(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
     """Batched permutation: state [B, t, 8] Montgomery -> same shape."""
     _check_states(state, dp, "poseidon permute")
     if not state.is_cuda:
         return permute_plain(state, dp)
-    if dp.t not in THREAD_PER_STATE_WIDTHS:
+    if dp.t not in K1_WIDTHS:
         return permute_group(state, dp)
+    return permute_k1(state, dp, permute_layout(int(state.shape[0]), dp.t))
+
+
+def k1_counter(t: int, layout: str) -> str:
+    """The launch counter of K1 at width t in a layout."""
+    return (f"poseidon_permute_warp_t{t}" if layout == "warp"
+            else f"poseidon_permute_t{t}")
+
+
+def permute_k1(state: torch.Tensor, dp: DeviceParams,
+               layout: str) -> torch.Tensor:
+    """The permutation through K1 in the given layout: "warp" launches
+    `poseidon_permute_warp`, "thread" launches `poseidon_permute` (counters:
+    `k1_counter`).  `permute` picks the layout by `permute_layout`."""
+    _check_states(state, dp, "poseidon permute_k1")
+    if layout not in K1_LAYOUTS:
+        raise ValueError(f"poseidon permute_k1: layout {layout!r} is not "
+                         f"one of {K1_LAYOUTS}")
+    if not state.is_cuda:
+        return permute_plain(state, dp)
+    if dp.t not in K1_WIDTHS:
+        raise NotImplementedError(
+            f"poseidon permute_k1: the kernel has t in {K1_WIDTHS}, "
+            f"not t={dp.t}")
     state = state.contiguous()
     out = torch.empty_like(state)
     B = int(state.shape[0])
     if B == 0:
         return out
-    consts = dp.kernel_consts(state.device)
+    warp = layout == "warp"
+    consts = (dp.group_consts if warp else dp.kernel_consts)(state.device)
     lib = kernels.lib("poseidon_permute")
-    rc = lib.poseidon_permute(
-        state.data_ptr(), out.data_ptr(), B, dp.t, dp.rf, dp.rp,
-        *[c.data_ptr() for c in consts], kernels.stream_ptr())
-    kernels.check(rc, f"poseidon_permute t={dp.t}")
-    kernels.launches[f"poseidon_permute_t{dp.t}"] += 1
+    entry = lib.poseidon_permute_warp if warp else lib.poseidon_permute
+    rc = entry(state.data_ptr(), out.data_ptr(), B, dp.t, dp.rf, dp.rp,
+               *[c.data_ptr() for c in consts], kernels.stream_ptr())
+    name = k1_counter(dp.t, layout)
+    kernels.check(rc, name)
+    kernels.launches[name] += 1
     return out
 
 

@@ -101,6 +101,9 @@ def host_check_lib():
                                          c_long, c_int, c_int, c_int]
                                         + [vp] * 6)
         lib.hc_absorb_chain.restype = c_int
+        lib.hc_permute_warp.argtypes = ([vp, c_long, c_int, c_int, c_int]
+                                        + [vp] * 6)
+        lib.hc_permute_warp.restype = c_int
         _HC = lib
     return _HC
 
