@@ -16,7 +16,17 @@ each, and exits non-zero as soon as one fails:
              and swept over batch sizes side by side (`k1_sweep`: the ms of
              each layout, medians of 5, and the two outputs compared
              exactly at every size), which is where `WARP_MAX_B` comes
-             from.  The chain kernel is also held against the host engine
+             from.  K5 (the wide widths 33, 65, 129) likewise: every
+             layout (S states a block, K threads a dense row, C blocks a
+             state) held against the plain version and swept over batch
+             sizes (`k5_sweep`, the fastest layout at each size in
+             `k5_fastest_by_B`: where `PACK_MIN_B` comes from; threads,
+             dynamic shared memory and registers of each layout in
+             `k5_layouts`), its rows at the batches the wide presets give
+             it (the wide paths' lines count K5's launches by batch, and
+             each row's `launches_at_shape` must not be 0), and its dense
+             products timed apart from its partial rounds
+             (`k5_phase_split`).  The chain kernel is also held against the host engine
              at its real length (4 chains of 4,096 rate blocks) and timed
              per block beside it; its row also gives its
              time per block over the host engine's (medians of several
@@ -67,7 +77,8 @@ gives the kernel's time at that shape too.  The last line is
 no result and exits with code 2.
 
 The compiler's report (registers, stack and spills of every kernel) is
-written to `ptxas.log` in `build/`, or in `--log-dir`.
+written to `ptxas.log` in `build/`, or in `--log-dir`, and every JSON line
+of the run to `chip_smoke.jsonl` beside it.
 
 `--rehearse-cpu` walks the same control flow on the CPU at a small size
 (plain versions only, no kernel is built or compared); it is for checking
@@ -77,6 +88,7 @@ the script itself and prints no `ok` line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -116,8 +128,12 @@ CHAIN_REPLACES = ("stark_mlwe_tpu/ops/poseidon_chain.py:429",
                   "stark_mlwe_tpu/ops/poseidon_pallas.py:584")
 
 
+LINES = []                     # every JSON line, for chip_smoke.jsonl
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    LINES.append(json.dumps(obj))
+    print(LINES[-1], flush=True)
 
 
 def smi_line() -> str:
@@ -138,10 +154,14 @@ def permute_macs(t: int, rf: int, rp: int) -> int:
 
 
 def kernel_key(mangled: str) -> str:
-    """`poseidon_permute_warp_kernel<17>` for the mangled name of that
+    """`poseidon_permute_warp_kernel<17>` or
+    `poseidon_permute_group_kernel<33,1,4>` for the mangled name of that
     template instance; other names as they are."""
-    m = re.match(r"_Z\d+(\w+?)ILi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+    m = re.match(r"_Z\d+(\w+?)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def ptxas_registers(log: str) -> dict:
@@ -467,49 +487,114 @@ def main(argv=None) -> int:
                 "dispatch": dpos.permute_layout(B, t)}
 
     # K5 poseidon_permute_group, t = 33, 65, 129: the tree levels of arity
-    # 32, 64 and 128.  Timed at the largest level a k=16 preset gives each
-    # width (2,048 parents of arity 32; 8 of arity 64 under hi128_64_8; 512
-    # of arity 128).
-    for t, B_main, B_more, replaces in (
-            (33, 2048, (512, 7, 1),
-             "stark_mlwe_tpu/ops/poseidon_pallas.py:486"),
-            (65, 8, (512, 7, 1),
-             "stark_mlwe_tpu/ops/poseidon_pallas.py:486"),
-            (129, 512, (7, 1),
-             "stark_mlwe_tpu/ops/poseidon_wide.py:198")):
+    # 32, 64 and 128.  Rows at the batches the k=16 presets give each width
+    # (2,048, 64 and 1 parents of arity 32 under uni32x3; 8 and 1 of arity
+    # 64 and 512, 4 and 1 of arity 128 under hi128_64_8), each in the layout
+    # `group_layout` picks.  Every row and every size of
+    # the sweep is held against the plain version on the same states; the
+    # edge values and the spec on one state of each width besides.
+    def k5_label(layout):
+        return "S={},K={},C={}".format(*layout)
+
+    def k5_kernel(t, layout):
+        return "poseidon_permute_group_kernel<{},{},{},{}>".format(t, *layout)
+
+    k5_shape = {}
+    if not rehearse:
+        glib = kernels.lib("poseidon_permute_group")
+        for t in dpos.GROUP_WIDTHS:
+            for layout in dpos.GROUP_LAYOUTS[t]:
+                th, nb = ctypes.c_int(), ctypes.c_int()
+                if glib.poseidon_permute_group_shape(
+                        t, *layout, ctypes.byref(th), ctypes.byref(nb)):
+                    raise AssertionError(f"K5 layout {t, layout} not built")
+                k5_shape[t, layout] = {"threads": th.value,
+                                       "dynamic_smem_bytes": nb.value}
+    k5_regs = ptxas_registers(kernels.build_log.get("poseidon_permute_group",
+                                                     ""))
+    k5_rows = []
+    for t, sizes, replaces in (
+            (33, (2048, 64, 1), "stark_mlwe_tpu/ops/poseidon_pallas.py:486"),
+            (65, (8, 1), "stark_mlwe_tpu/ops/poseidon_pallas.py:486"),
+            (129, (512, 4, 1), "stark_mlwe_tpu/ops/poseidon_wide.py:198")):
         params = spos.params_for_width(t)
         dp = dpos.device_params(params)
-        if rehearse:
-            B_main, B_more = 2, (1,)
         name = f"poseidon_permute_group_t{t}"
-        st = rand_elems(B_main, t)
-        out_k = dpos.permute(st, dp)
-        sync()
-        err = check_exact(name, out_k, dpos.permute_plain(st, dp))
-        for B in B_more:
-            st2 = rand_elems(B, t)
-            err = max(err, check_exact(f"{name} (B={B})",
-                                       dpos.permute(st2, dp),
-                                       dpos.permute_plain(st2, dp)))
         edge = edge_states(t)
-        err = max(err, check_exact(f"{name} (edge values)",
-                                   dpos.permute(edge, dp),
-                                   dpos.permute_plain(edge, dp)))
-        one = fr.unpack_ints(st[:1], mont=True)
-        if fr.unpack_ints(out_k[:1], mont=True) != spos.permute(one, params):
-            raise AssertionError(f"{name}: disagrees with the spec")
-        ms = time_ms(lambda: dpos.permute(st, dp), 5)
-        pms = time_ms(lambda: dpos.permute_plain(st, dp), 1)
-        bms, by = bound(2 * 32 * t * B_main,
-                        B_main * permute_macs(t, params.rf, params.rp))
-        one_state = st[:1].contiguous()
-        rows.append({"name": name, "route": "cuda", "source":
-                     "stark_mlwe_tpu_torch/csrc/poseidon_permute_group.cu",
-                     "replaces": replaces, "shape": f"B={B_main}, t={t}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "tolerance": 0, "bound_ms": bms, "bound_by": by,
-                     "library_ms": None,
-                     "ms_B1": time_ms(lambda: dpos.permute(one_state, dp), 5)})
+        err = check_exact(f"{name} (edge values)", dpos.permute(edge, dp),
+                          dpos.permute_plain(edge, dp))
+        for B in (sizes[1:] if rehearse else sizes):
+            st = rand_elems(B, t)
+            out_k = dpos.permute(st, dp)
+            sync()
+            err = max(err, check_exact(f"{name} (B={B})", out_k,
+                                       dpos.permute_plain(st, dp)))
+            one = fr.unpack_ints(st[:1], mont=True)
+            if fr.unpack_ints(out_k[:1], mont=True) != spos.permute(one,
+                                                                   params):
+                raise AssertionError(f"{name}: disagrees with the spec")
+            ms = time_ms(lambda: dpos.permute(st, dp), 5)
+            pms = time_ms(lambda: dpos.permute_plain(st, dp), 1)
+            bms, by = bound(2 * 32 * t * B,
+                            B * permute_macs(t, params.rf, params.rp))
+            layout = dpos.group_layout(B, t)
+            rows.append({"name": name, "route": "cuda", "source":
+                         "stark_mlwe_tpu_torch/csrc/poseidon_permute_group.cu",
+                         "replaces": replaces, "shape": f"B={B}, t={t}",
+                         "layout": dict(zip("SKC", layout)) | k5_shape.get(
+                             (t, layout), {}),
+                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                         "tolerance": 0, "bound_ms": bms, "bound_by": by,
+                         "library_ms": None,
+                         "registers": k5_regs.get(k5_kernel(t, layout))})
+            k5_rows.append((rows[-1], f"t={t}, B={B}"))
+    # Every layout side by side over batch sizes, each held against the plain
+    # version: where `PACK_MIN_B` comes from.
+    k5_sweep, k5_best = {}, {}
+    for t in dpos.GROUP_WIDTHS:
+        dp = dpos.device_params(spos.params_for_width(t))
+        sizes = (1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+        for B in (sizes[:1] if rehearse else sizes):
+            st = rand_elems(B, t)
+            want = dpos.permute_plain(st, dp)
+            cell = {}
+            for layout in dpos.GROUP_LAYOUTS[t]:
+                check_exact(f"K5 t={t} B={B} layout={layout}",
+                            dpos.permute_group(st, dp, layout), want)
+                cell[k5_label(layout) + "_ms"] = time_ms(
+                    lambda: dpos.permute_group(st, dp, layout), 5)
+            best = min(cell, key=cell.get)[:-3]
+            k5_best.setdefault(f"t={t}", {})[str(B)] = best
+            k5_sweep[f"t={t}, B={B}"] = cell | {
+                "equal_to_plain": True, "fastest": best,
+                "dispatch": k5_label(dpos.group_layout(B, t))}
+    k5_layouts = {f"t={t},{k5_label(layout)}": v | {
+        "registers": k5_regs.get(k5_kernel(t, layout))}
+        for (t, layout), v in k5_shape.items()}
+    # Where K5's time goes: the entry point handed changed round counts,
+    # (rf, rp) as the parameters have them, (rf, 1) for the rf + 1 dense
+    # products and their full rounds, (0, rp) less (0, 1) for the rp - 1
+    # exchanging partial rounds; at one state and at a full card in the
+    # packing layout.  Those outputs are not permutations and are not read.
+    k5_phases = {}
+    for t in (() if rehearse else dpos.GROUP_WIDTHS):
+        dp = dpos.device_params(spos.params_for_width(t))
+        consts = [c.data_ptr() for c in dp.group_consts(dev)]
+        for B in (1, {33: 2048, 65: 512, 129: 512}[t]):
+            layout = dpos.group_layout(B, t)
+            st = rand_elems(B, t)
+            res = torch.empty_like(st)
+            cell = {}
+            for rf, rp in ((dp.rf, dp.rp), (dp.rf, 1), (0, dp.rp), (0, 1)):
+                cell[f"rf={rf},rp={rp}_ms"] = time_ms(
+                    lambda: kernels.check(glib.poseidon_permute_group(
+                        st.data_ptr(), res.data_ptr(), B, t, *layout, rf, rp,
+                        *consts, kernels.stream_ptr()), "K5 phase split"), 5)
+            part = cell[f"rf=0,rp={dp.rp}_ms"] - cell["rf=0,rp=1_ms"]
+            k5_phases["t={}, B={}, S={}, K={}, C={}".format(t, B, *layout)] = (
+                cell | {"dense_and_full_rounds_ms": cell[f"rf={dp.rf},rp=1_ms"],
+                        "partial_rounds_ms": part,
+                        "partial_round_us": part * 1e3 / (dp.rp - 1)})
 
     dp17 = dpos.device_params(default_params())
     # K4 poseidon_absorb_chain: against its plain version on short chains
@@ -685,6 +770,8 @@ def main(argv=None) -> int:
     del x22, cols, tmp, out22, ep22
     emit({"phase": "kernels", "card": card, "exact": True,
           "k1_sweep": k1_sweep,
+          "k5_sweep": k5_sweep, "k5_fastest_by_B": k5_best,
+          "k5_layouts": k5_layouts, "k5_phase_split": k5_phases,
           "chain": {k: rows[-2][k] for k in (
               "shape", "ms", "ms_per_block", "host_engine_ms_per_block",
               "ms_per_block_over_host_engine", "sass_instructions",
@@ -828,12 +915,28 @@ def main(argv=None) -> int:
                "poseidon_permute_warp_t9"]),
              (WIDE_PRESETS[1][0], WIDE_PRESETS[1][1],
               ["poseidon_permute_group_t33", "poseidon_permute_warp_t9"])])
+    # The batch of every K5 launch of the wide paths, counted by width and
+    # size (the shapes behind the K5 rows).
+    k5_batches, k5_batches_by_path = {}, {}
+    permute_group = dpos.permute_group
+
+    def counted_permute_group(state, dp, layout=None):
+        key = f"t={dp.t}, B={int(state.shape[0])}"
+        k5_batches[key] = k5_batches.get(key, 0) + 1
+        return permute_group(state, dp, layout)
+
+    dpos.permute_group = counted_permute_group
     for preset, schedule, group_kernels in wide:
         wparams = DeepFriParams(schedule=schedule, r=paper.r,
                                 seed_z=0xDEEFBAAD)
+        k5_batches.clear()
         drive(f"{preset}, host witness", wparams,
               lambda: prove(random_cols, wparams, device=dev),
               group_kernels + ["poseidon_permute_t17", "fr_fold"] + K2)
+        k5_batches_by_path[f"{preset}, host witness"] = dict(k5_batches)
+        emit({"phase": "main_path", "path": f"{preset}, host witness",
+              "k5_launches_by_batch": dict(k5_batches)})
+    dpos.permute_group = permute_group
     emit({"phase": "main_path", "witness_seconds": witness_s,
           "device_witness_equals_host_witness": True})
 
@@ -976,6 +1079,18 @@ def main(argv=None) -> int:
         r["launches"] = sum(r["launches_by_path"].values())
         if not rehearse and r["launches"] == 0 and r.get("main_path", True):
             raise AssertionError(f"no main path launched {r['name']}")
+    # A K5 row's own shape: the launches at its batch, which a main path
+    # must have made.
+    for r, key in k5_rows:
+        r["launches_at_shape"] = sum(c.get(key, 0)
+                                     for c in k5_batches_by_path.values())
+        if not rehearse and r["launches_at_shape"] == 0:
+            raise AssertionError(f"no main path launched {r['name']} at "
+                                 f"{r['shape']}")
+    if not rehearse:
+        # the whole output, which can outgrow what a job runner shows
+        with open(os.path.join(logdir, "chip_smoke.jsonl"), "w") as f:
+            f.write("\n".join(LINES + [json.dumps({"kernels": rows})]) + "\n")
     if rehearse:
         emit({"kernels": rows})
         print("rehearsal on the CPU finished: no kernel was built or run",

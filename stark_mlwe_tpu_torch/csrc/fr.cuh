@@ -1,5 +1,5 @@
 // Pallas scalar field Fr arithmetic on 4x64-bit Montgomery limbs (R = 2^256),
-// shared by every CUDA kernel of the port.
+// of K2 `fr_elementwise`, K3 `fr_fold` and K6 `fr_ntt` (through `ntt.cuh`).
 //
 // An element is 32 bytes, little-endian: the port's `[..., 8] int32` tensor
 // layout read as `u64[4]`.  The algorithms are those of the host engine
@@ -147,14 +147,6 @@ FR_FN void fr_mont_mul(const u64 *a, const u64 *b, u64 *out) {
   if (fr_geq_p(t)) fr_sub_p(t);
 #pragma unroll
   for (int i = 0; i < 4; ++i) out[i] = t[i];
-}
-
-// x <- x^5 (the Poseidon S-box).
-FR_FN void fr_pow5(u64 *x) {
-  u64 x2[4], x4[4];
-  fr_mont_mul(x, x, x2);
-  fr_mont_mul(x2, x2, x4);
-  fr_mont_mul(x4, x, x);
 }
 
 // acc += a*b: 256x256 schoolbook product added into a 9-limb (576-bit)

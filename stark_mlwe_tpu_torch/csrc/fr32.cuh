@@ -1,6 +1,7 @@
 // Pallas scalar field Fr on 8x32-bit Montgomery limbs (R = 2^256), written as
-// carry chains.  Included by K4 `poseidon_absorb_chain` and by both layouts
-// of K1 `poseidon_permute` (through `poseidon_chain.cuh` and `poseidon.cuh`).
+// carry chains.  Included by K4 `poseidon_absorb_chain`, both layouts of K1
+// `poseidon_permute` and K5 `poseidon_permute_group` (through
+// `poseidon_chain.cuh`, `poseidon.cuh` and `poseidon_group.cuh`).
 //
 // An element is `u32[8]`, little-endian: the same bytes as the port's
 // `[..., 8] int32` layout and as the `u64[4]` of `fr.cuh`, so no tensor or
@@ -35,9 +36,12 @@
 //     conditional subtraction brings below P;
 //   - CIOS with a < 2^256 and b < 2.0000001 P keeps t < 3.1 P < 2^256
 //     between steps and t + a_i*b + m*P < 2^288 inside one: 9 limbs;
-//   - a row sum of at most 17 products of values below P is < 17 P^2 <
-//     2^516: 17 limbs; and 17 P^2 < 2^320 P, so fr32_redc320 returns a
-//     value below 2P and one conditional subtraction finishes it.
+//   - a row sum of at most 129 products of values below P (K5's widest
+//     row, t = 129) is < 129 P^2 < 2^7.02 * 2^508.0001 < 2^516: 17 limbs
+//     (544 bits) hold it with room; and 129 P < 2^262 < 2^320, so
+//     129 P^2 < 2^320 P and fr32_redc320 returns a value below
+//     (129 P^2 + 2^320 P) / 2^320 < 2P; one conditional subtraction
+//     finishes it.
 
 #pragma once
 

@@ -1,9 +1,10 @@
 // Host build of the kernels' arithmetic (g++, no CUDA): the same `fr.cuh`,
-// `poseidon.cuh`, `poseidon_group.cuh`, `ntt.cuh`, `fr32.cuh` and
-// `poseidon_chain.cuh` the CUDA kernels include, behind a plain C interface,
+// `poseidon.cuh`, `ntt.cuh`, `fr32.cuh`, `poseidon_chain.cuh` and
+// `poseidon_group.cuh` the CUDA kernels include, behind a plain C interface,
 // so the CPU tests can hold the device functions against the pure-Python
 // spec where there is no card.  Not used by the prover.
 
+#include <cstring>
 #include <vector>
 
 #include "ntt.cuh"
@@ -57,62 +58,6 @@ int hc_permute(u64 *states, long B, int t, int rf, int rp, const u64 *mds,
 }
 
 }  // extern "C"
-
-// The thread-group permutation of `poseidon_group.cuh` with its threads run
-// one after another: each step between two barriers becomes a loop over the
-// thread index, and the tree sum of the partial rounds a running sum (an
-// unreduced integer sum is the same in any order).
-template <int T>
-static void permute_group_replay(u64 *state, const PoseidonGroupConsts &k) {
-  u64 st[T * 4];
-  u64(*x)[4] = (u64(*)[4])state;
-  auto dense = [&](const u64 *mT) {
-    for (int i = 0; i < T * 4; ++i) st[i] = state[i];
-    for (int tid = 0; tid < T; ++tid) pg_row_dot<T>(mT, tid, st, x[tid]);
-  };
-  const int half = k.rf / 2;
-  for (int r = 0; r < k.rf; ++r) {
-    if (r == half) {
-      for (int q = 0; q < k.rp; ++q) {
-        pg_ark_sbox(k.rc_part + q * 4, x[0]);
-        if (q == k.rp - 1) break;
-        u64 acc[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, term[9];
-        for (int tid = 0; tid < T; ++tid) {
-          pg_product(k.qrow + ((long)q * T + tid) * 4, x[tid], term);
-          pg_acc_add(acc, term);
-        }
-        u64 s0[4] = {x[0][0], x[0][1], x[0][2], x[0][3]};
-        fr_redc320(acc, x[0]);
-        for (int tid = 1; tid < T; ++tid)
-          pg_col_update(k.qcol + ((long)q * (T - 1) + tid - 1) * 4, s0,
-                        x[tid]);
-      }
-      dense(k.mfinalT);
-    }
-    for (int tid = 0; tid < T; ++tid)
-      pg_ark_sbox(k.rc_full + ((long)r * T + tid) * 4, x[tid]);
-    dense(k.mdsT);
-  }
-}
-
-// The constants are those of the group kernels: `mdsT` and `mfinalT` are the
-// transposed matrices.
-extern "C" int hc_permute_group(u64 *states, long B, int t, int rf, int rp,
-                                const u64 *mdsT, const u64 *rc_full,
-                                const u64 *rc_part, const u64 *qrow,
-                                const u64 *qcol, const u64 *mfinalT) {
-  PoseidonGroupConsts k{mdsT, rc_full, rc_part, qrow, qcol, mfinalT, rf, rp};
-  for (long b = 0; b < B; ++b) {
-    u64 *s = states + b * t * 4;
-    if (t == 9) permute_group_replay<9>(s, k);
-    else if (t == 17) permute_group_replay<17>(s, k);
-    else if (t == 33) permute_group_replay<33>(s, k);
-    else if (t == 65) permute_group_replay<65>(s, k);
-    else if (t == 129) permute_group_replay<129>(s, k);
-    else return 1;
-  }
-  return 0;
-}
 
 // The NTT tile kernel of `fr_ntt.cu` with its blocks run one after another
 // and, inside a block, each step between two barriers as a loop over the
@@ -258,4 +203,84 @@ extern "C" int hc_permute_warp(u32 *states, long B, int t, int rf, int rp,
     else return 1;
   }
   return 0;
+}
+
+// The exchange policy of `poseidon_group.cuh` for one thread that runs all
+// NT threads of each of the C blocks of a cluster: slot i is thread i % NT
+// of block i / NT, a barrier is the end of a step (each step runs over all
+// slots before the next begins), a shuffle reads the other slot of the same
+// warp, and a tile copy is a memcpy.  The cluster's blocks share one shared
+// memory here: they hold the same state and compute the same partial rounds,
+// so a store into every block is one store.  With it
+// `poseidon_permute_group` is the kernel's own routine in the kernel's order.
+template <int NT, int C>
+struct PgSlots {
+  static constexpr int N = NT * C;
+  int slot(int i) const { return i % NT; }
+  int rank(int i) const { return i / NT; }
+  static void sync() {}
+  static void sync_all() {}
+  void store_all(u32 *p, const u32 *x) const { pg_sts(p, x); }
+  template <int W>
+  static void xor_swap(u32 (*v)[W], int d, u32 (*o)[W]) {
+    for (int i = 0; i < N; ++i)
+      for (int w = 0; w < W; ++w) o[i][w] = v[i ^ d][w];
+  }
+  void copy_tile(u32 *dst, const u32 *src, int words) const {
+    std::memcpy(dst, src, sizeof(u32) * words);
+  }
+  static void wait_tiles() {}
+};
+
+// Cluster after cluster as the kernel's grid: the row slots load their row,
+// the routine runs, part 0 of each row stores it; states past B hold zeros.
+template <int T, int S, int K, int C>
+static void permute_group_replay(u32 *states, long B, const ChainConsts &k) {
+  using G = PgShape<T, S, K, C>;
+  using E = PgSlots<G::THREADS, C>;
+  const E e{};
+  std::vector<u32> shared(G::WORDS);
+  std::vector<u32> xs(E::N * 8);
+  u32(*x)[8] = (u32(*)[8])xs.data();
+  for (long b0 = 0; b0 < B; b0 += S) {
+    for (int i = 0; i < E::N; ++i) {
+      int s, row, kp;
+      const bool mine = pg_row<G>(e.slot(i), e.rank(i), s, row, kp) &&
+                        b0 + s < B;
+      for (int l = 0; l < 8; ++l)
+        x[i][l] = mine ? states[((b0 + s) * T + row) * 8 + l] : 0u;
+    }
+    poseidon_permute_group<G>(x, e, k, shared.data());
+    for (int i = 0; i < E::N; ++i) {
+      int s, row, kp;
+      if (pg_row<G>(e.slot(i), e.rank(i), s, row, kp) && kp == 0 &&
+          b0 + s < B)
+        for (int l = 0; l < 8; ++l)
+          states[((b0 + s) * T + row) * 8 + l] = x[i][l];
+    }
+  }
+}
+
+// The arguments of the CUDA entry point `poseidon_permute_group` without the
+// stream, the states permuted in place; refuses what the entry point refuses.
+extern "C" int hc_permute_group(u32 *states, long B, int t, int S, int K,
+                                int C, int rf, int rp, const u32 *mdsT,
+                                const u32 *rc_full, const u32 *rc_part,
+                                const u32 *qrow, const u32 *qcol,
+                                const u32 *mfinalT) {
+  ChainConsts k{mdsT, rc_full, rc_part, qrow, qcol, mfinalT, rf, rp};
+  if (B <= 0 || S < 1 || C < 1 || rp < 1 || (rf & 1)) return 1;
+#define PG_REPLAY(TT, SS, KK, CC)                          \
+  if (t == TT && S == SS && K == KK && C == CC) {          \
+    permute_group_replay<TT, SS, KK, CC>(states, B, k);    \
+    return 0;                                              \
+  }
+  PG_LAYOUTS(PG_REPLAY)
+#undef PG_REPLAY
+  return 1;
+}
+
+extern "C" int hc_group_shape(int t, int S, int K, int C, int *threads,
+                              int *bytes) {
+  return pg_shape(t, S, K, C, threads, bytes);
 }

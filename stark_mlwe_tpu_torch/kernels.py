@@ -23,8 +23,8 @@ import time
 from . import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_HEADERS = ("fr.cuh", "poseidon.cuh", "poseidon_group.cuh", "ntt.cuh",
-            "fr32.cuh", "poseidon_chain.cuh")
+_HEADERS = ("fr.cuh", "poseidon.cuh", "ntt.cuh", "fr32.cuh",
+            "poseidon_chain.cuh", "poseidon_group.cuh")
 
 SOURCES = {
     "poseidon_permute": "poseidon_permute.cu",
@@ -101,9 +101,12 @@ def _declare(name: str, lib) -> None:
                                               vp, vp, vp, vp, vp, vp, vp]
         lib.poseidon_absorb_chain.restype = i
     elif name == "poseidon_permute_group":
-        lib.poseidon_permute_group.argtypes = [vp, vp, l, i, i, i,
+        lib.poseidon_permute_group.argtypes = [vp, vp, l, i, i, i, i, i, i,
                                                vp, vp, vp, vp, vp, vp, vp]
         lib.poseidon_permute_group.restype = i
+        ip = ctypes.POINTER(i)
+        lib.poseidon_permute_group_shape.argtypes = [i, i, i, i, ip, ip]
+        lib.poseidon_permute_group_shape.restype = i
     elif name == "fr_ntt":
         lp = ctypes.POINTER(l)
         lib.fr_ntt_tiles.argtypes = [vp, vp, vp, vp, l, i, i, l, l, l, i,

@@ -8,13 +8,14 @@ limb tensors.
 in the layout `permute_layout` picks by the batch size: one warp per state
 (`poseidon_permute_warp`) up to `WARP_MAX_B[t]` states, one thread per state
 (`poseidon_permute`) above; and K5 `poseidon_permute_group`
-(csrc/poseidon_permute_group.cu; one thread per state element) at t = 33, 65
-and 129.  Together they replace the Pallas kernels `_permute_tiles`
-(ops/poseidon_pallas.py of the JAX package) and `_permute_tiles_wide`
-(ops/poseidon_wide.py).  On a CPU tensor `permute` takes `permute_plain`: the
-same rounds as dense PyTorch tensor code (ARK, x^5, one fused
-constant-matrix apply per round), which runs on any device and is what the
-kernels are held against.
+(csrc/poseidon_permute_group.cu; S states a block with their lanes packed,
+K threads a dense row, C blocks a state, in the layout `group_layout` picks
+by the batch size) at t = 33, 65 and 129.  Together they replace the Pallas
+kernels `_permute_tiles` (ops/poseidon_pallas.py of the JAX package) and
+`_permute_tiles_wide` (ops/poseidon_wide.py).  On a CPU tensor `permute`
+takes `permute_plain`: the same rounds as dense PyTorch tensor code (ARK,
+x^5, one fused constant-matrix apply per round), which runs on any device
+and is what the kernels are held against.
 
 `absorb_chain` launches K4 `poseidon_absorb_chain`
 (csrc/poseidon_absorb_chain.cu; one warp per chain, the state in registers,
@@ -49,6 +50,19 @@ K1_LAYOUTS = ("warp", "thread")
 # wins at 2,048 of t=9 and loses at 4,096.
 WARP_MAX_B = {17: 4096, 9: 2048}
 
+# K5's layouts (S states a block, K threads a dense row, C blocks a cluster
+# for one state), as built (`PG_LAYOUTS` in csrc/poseidon_group.cuh): for
+# small batches one state a block with its rows split (t = 33) or one state
+# over a cluster of four SMs (t = 65, 129; at t = 33 the dense products are
+# too short to pay for it), S states a block for large ones.  The K of each
+# was the fastest of 2, 4 and 8 tried on an H100 (PERF.md).
+GROUP_LAYOUTS = {33: ((1, 4, 1), (16, 1, 1)),
+                 65: ((1, 8, 4), (8, 1, 1)),
+                 129: ((1, 8, 4), (4, 1, 1))}
+# The first layout below PACK_MIN_B[t] states, the packing one from there on;
+# from `chip_smoke.py`'s sweep of both (`k5_sweep`).
+PACK_MIN_B = {33: 1024, 65: 128, 129: 128}
+
 
 class DeviceParams:
     """Poseidon constants of one width, with per-device tensor caches.
@@ -82,10 +96,10 @@ class DeviceParams:
         return self._kernel[key]
 
     def group_consts(self, device):
-        """The constants of K5 (a thread per element), K4 and K1's warp
-        layout (a lane per element): those of `kernel_consts` with the two
-        dense matrices transposed, so that the threads of a warp, one per
-        row, read neighbouring elements."""
+        """The constants of K5, K4 and K1's warp layout (a thread or a lane
+        per row): those of `kernel_consts` with the two dense matrices
+        transposed, so that the threads of a warp, one per row, read
+        neighbouring elements and a tile of matrix rows j.. is contiguous."""
         key = str(device)
         if key not in self._group:
             mds, rcf, rcp, qrow, qcol, mfin = self.kernel_consts(device)
@@ -155,6 +169,13 @@ def permute_layout(B: int, t: int) -> str:
     return "warp" if B <= WARP_MAX_B[t] else "thread"
 
 
+def group_layout(B: int, t: int) -> tuple:
+    """K5's layout (S, K, C) for a batch of B states of width t: the width's
+    small-batch layout (rows split, or a cluster per state) below
+    `PACK_MIN_B[t]`, S states a block from there on."""
+    return GROUP_LAYOUTS[t][B >= PACK_MIN_B[t]]
+
+
 def permute(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
     """Batched permutation: state [B, t, 8] Montgomery -> same shape."""
     _check_states(state, dp, "poseidon permute")
@@ -203,27 +224,30 @@ def permute_k1(state: torch.Tensor, dp: DeviceParams,
     return out
 
 
-def permute_group(state: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
-    """The permutation through K5 `poseidon_permute_group` (a block per
-    state, a thread per element).  `permute` sends the wide widths here."""
+def permute_group(state: torch.Tensor, dp: DeviceParams,
+                  layout: tuple | None = None) -> torch.Tensor:
+    """The permutation through K5 `poseidon_permute_group` in the layout
+    (S, K, C) given, or by default the one `group_layout` picks.  `permute`
+    sends the wide widths here."""
     _check_states(state, dp, "poseidon permute_group")
+    B = int(state.shape[0])
+    if dp.t in GROUP_WIDTHS:
+        layout = group_layout(B, dp.t) if layout is None else tuple(layout)
+    if layout not in GROUP_LAYOUTS.get(dp.t, ()):
+        raise ValueError(f"poseidon permute_group: layout {layout} at t="
+                         f"{dp.t} is not one of {GROUP_LAYOUTS}")
     if not state.is_cuda:
         return permute_plain(state, dp)
-    if dp.t not in GROUP_WIDTHS:
-        raise NotImplementedError(
-            f"poseidon permute_group: the kernel has t in {GROUP_WIDTHS}, "
-            f"not t={dp.t}")
     state = state.contiguous()
     out = torch.empty_like(state)
-    B = int(state.shape[0])
     if B == 0:
         return out
     consts = dp.group_consts(state.device)
     lib = kernels.lib("poseidon_permute_group")
     rc = lib.poseidon_permute_group(
-        state.data_ptr(), out.data_ptr(), B, dp.t, dp.rf, dp.rp,
+        state.data_ptr(), out.data_ptr(), B, dp.t, *layout, dp.rf, dp.rp,
         *[c.data_ptr() for c in consts], kernels.stream_ptr())
-    kernels.check(rc, f"poseidon_permute_group t={dp.t}")
+    kernels.check(rc, f"poseidon_permute_group t={dp.t} layout={layout}")
     kernels.launches[f"poseidon_permute_group_t{dp.t}"] += 1
     return out
 

@@ -63,8 +63,8 @@ _HC = None
 
 def host_check_lib():
     """The kernels' arithmetic (csrc/fr.cuh, csrc/poseidon.cuh,
-    csrc/poseidon_group.cuh, csrc/ntt.cuh, csrc/fr32.cuh,
-    csrc/poseidon_chain.cuh) compiled for the host with g++ from
+    csrc/ntt.cuh, csrc/fr32.cuh, csrc/poseidon_chain.cuh,
+    csrc/poseidon_group.cuh) compiled for the host with g++ from
     csrc/host_check.cpp."""
     global _HC
     if _HC is None:
@@ -84,8 +84,6 @@ def host_check_lib():
         lib.hc_permute.argtypes = ([u64p, ctypes.c_long]
                                    + [ctypes.c_int] * 3 + [u64p] * 6)
         lib.hc_permute.restype = ctypes.c_int
-        lib.hc_permute_group.argtypes = lib.hc_permute.argtypes
-        lib.hc_permute_group.restype = ctypes.c_int
         longp = ctypes.POINTER(ctypes.c_long)
         lib.hc_ntt_tile.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int,
@@ -104,6 +102,12 @@ def host_check_lib():
         lib.hc_permute_warp.argtypes = ([vp, c_long, c_int, c_int, c_int]
                                         + [vp] * 6)
         lib.hc_permute_warp.restype = c_int
+        lib.hc_permute_group.argtypes = ([vp, c_long] + [c_int] * 6
+                                         + [vp] * 6)
+        lib.hc_permute_group.restype = c_int
+        ip = ctypes.POINTER(c_int)
+        lib.hc_group_shape.argtypes = [c_int] * 4 + [ip, ip]
+        lib.hc_group_shape.restype = c_int
         _HC = lib
     return _HC
 
