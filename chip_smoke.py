@@ -37,7 +37,13 @@ each, and exits non-zero as soon as one fails:
              and inverse, with no, a full and a periodic epilogue, on contiguous and strided views, ragged
              batches and edge values, and timed at the two launches that
              n = 2^22 gives it (2,048 transforms of length 2,048: the
-             columns with the step twiddles, then the rows)
+             columns with the step twiddles, then the rows).  The batch
+             inversion `fr_batch_inv` (the f0 quotient of every prove path,
+             three launches) is held at the prover's n = 65,536, at edge
+             values, at n = 1, 2, 3, 1,001 and 2^17 + 3 (runs of two
+             elements), and with a zero in the input; timed whole (samples
+             printed) and its total launch alone on one element
+             (`serial_floor_ms`: the one Fermat inversion)
   golden     proofs made on the card whose sha256 of `serialize_proof` must
              equal the JAX package's, recorded in
              tests/data/torch_golden.json, and which the pure-int spec
@@ -56,7 +62,8 @@ each, and exits non-zero as soon as one fails:
              and not in the host engine; (c) four random columns at the
              presets `hi128_64_8` [128,64,8] and `uni32x3` [32,32,32].
              Every path: prove, verify, two tampered proofs refused, phase
-             times
+             times; one f0 quotient (three `fr_batch_inv` launches) and, on
+             the host-witness paths, no `fr_sub`
   ntt_path   the NTT entry points at full size, counts set to 0 before and
              read after: `ntt` of 2^22 elements equal to the flat plain
              transform, `intt(ntt(x)) == x`, `lde` of 2^20 values at blowup
@@ -274,8 +281,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
 
     def time_ms(fn, reps: int, inner: int = 1) -> float:
-        """Median over `reps` of the device time of one call: each sample
-        is `inner` back-to-back calls between two CUDA events, after one
+        return statistics.median(time_samples(fn, reps, inner))
+
+    def time_samples(fn, reps: int, inner: int = 1) -> list:
+        """`reps` samples of the device time of one call: each sample is
+        `inner` back-to-back calls between two CUDA events, after one
         warm-up.  A spin kernel is queued ahead of the first event so the
         host runs ahead of the card and the launches' host cost (tens of
         microseconds each) does not show as device time."""
@@ -298,7 +308,7 @@ def main(argv=None) -> int:
                 for _ in range(inner):
                     fn()
                 samples.append((time.perf_counter() - t0) * 1e3 / inner)
-        return statistics.median(samples)
+        return samples
 
     def max_abs_err(a, b) -> int:
         if a.shape != b.shape:
@@ -394,6 +404,102 @@ def main(argv=None) -> int:
                  "shape": f"n={full_n}, m={m}", "max_abs_err": err,
                  "tolerance": 0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
                  "bound_by": by, "library_ms": None})
+
+    # fr_batch_inv: the f0 quotient phi / (w - z) of every prove path (one
+    # call, three launches) and `fr.batch_inv`, held exactly against the
+    # plain versions at the prover's n, at edge values, at ragged n, at an n
+    # whose layout takes runs of two elements, and with a zero in the input
+    # (all outputs 0).  Timed whole (median of 7, samples printed) and the
+    # total launch alone on one element: the Fermat chain of the one
+    # inversion, the design's serial floor.  The launches apart come from
+    # scripts/profile_torch_prove.py, the layouts side by side from
+    # scripts/batch_inv_sweep.py.
+    phi_q, w_q, z_q = rand_elems(full_n), rand_elems(full_n), rand_elems(1)[0]
+    want_q = fr.f0_quotient_plain(phi_q, w_q, z_q)
+    err = check_exact("f0_quotient", fr.f0_quotient(phi_q, w_q, z_q), want_q)
+    err = max(err, check_exact("batch_inv", fr.batch_inv(w_q),
+                               fr.batch_inv_plain(w_q)))
+    nz = fr.to_device(fr.pack_ints([x for x in edge_ints if x] * 3), dev)
+    for zc in (z_q, fr.const(0, dev), nz[4]):
+        err = max(err, check_exact("f0_quotient (edge values)",
+                                   fr.f0_quotient(nz.flip(0), nz, zc),
+                                   fr.f0_quotient_plain(nz.flip(0), nz, zc)))
+    err = max(err, check_exact("batch_inv (edge values)", fr.batch_inv(nz),
+                               fr.batch_inv_plain(nz)))
+    for k in (1, 2, 3, 1001):
+        err = max(err, check_exact(
+            f"f0_quotient (n={k})", fr.f0_quotient(phi_q[:k], w_q[:k], z_q),
+            fr.f0_quotient_plain(phi_q[:k], w_q[:k], z_q)))
+        err = max(err, check_exact(f"batch_inv (n={k})",
+                                   fr.batch_inv(w_q[:k]),
+                                   fr.batch_inv_plain(w_q[:k])))
+    n_runs = (1 if rehearse else 1 << 17) + 3      # runs of two elements
+    w_big = rand_elems(n_runs)
+    err = max(err, check_exact(
+        f"f0_quotient (n={n_runs}, layout {fr.batch_inv_layout(n_runs)})",
+        fr.f0_quotient(w_big.flip(0), w_big, z_q),
+        fr.f0_quotient_plain(w_big.flip(0), w_big, z_q)))
+    del w_big
+    w_zero = w_q[:1001].clone()
+    w_zero[len(w_zero) * 3 // 4] = 0
+    z_in = w_q[len(w_zero) // 2]          # w - z = 0 there
+    for got, want in ((fr.batch_inv(w_zero), fr.batch_inv_plain(w_zero)),
+                      (fr.f0_quotient(phi_q[:1001], w_q[:1001], z_in),
+                       fr.f0_quotient_plain(phi_q[:1001], w_q[:1001],
+                                            z_in))):
+        err = max(err, check_exact("a zero in the input", got, want))
+        if got.any():
+            raise AssertionError("fr_batch_inv: a zero in the input did not "
+                                 "make every output 0")
+    bi_samples = time_samples(lambda: fr.f0_quotient(phi_q, w_q, z_q), 7)
+    pms = time_ms(lambda: fr.f0_quotient_plain(phi_q, w_q, z_q), 1)
+    bi_layout = fr.batch_inv_layout(full_n)
+    bi_scratch = fr.batch_inv_scratch(full_n, bi_layout)
+    # Fermat's inverse in fr32_inv: 14 table products, 4 squarings for each
+    # of the 63 lower 4-bit digits of P - 2, one product per nonzero digit.
+    inv_products = 14 + 4 * 63 + sum(1 for k in range(63)
+                                     if (P - 2) >> (4 * k) & 15)
+    # bytes of the function: w, phi, out and z once (the scratch the
+    # three launches pass between them is this design's cost, reported as
+    # `scratch_bytes`, not the function's); products: Montgomery's trick
+    # (3 per element), phi (1 per element) and the one inversion
+    bms, by = bound(32 * (3 * full_n + 1),
+                    MAC_MONT_MUL * (4 * full_n + inv_products))
+    floor_ms = None
+    if not rehearse:
+        # the total launch alone (stages mask 2) on one element: the Fermat
+        # chain of the one inversion, after one call of all three launches
+        one, out1 = w_q[:1], torch.empty_like(w_q[:1])
+        lay1 = fr.batch_inv_layout(1)
+        scr1 = torch.empty((fr.batch_inv_scratch(1, lay1), 8),
+                           dtype=torch.int32, device=dev)
+        blib = kernels.lib("fr_batch_inv")
+
+        def bi_one(stages):
+            kernels.check(blib.fr_batch_inv(
+                one.data_ptr(), None, None, out1.data_ptr(),
+                scr1.data_ptr(), int(scr1.shape[0]), 1, *lay1, stages,
+                kernels.stream_ptr()), "fr_batch_inv total")
+        bi_one(7)
+        floor_ms = time_ms(lambda: bi_one(2), 7)
+    rows.append({"name": "fr_batch_inv", "route": "cuda",
+                 "source": "stark_mlwe_tpu_torch/csrc/fr_batch_inv.cu",
+                 "replaces": "stark_mlwe_tpu/ops/fr.py:479",
+                 "also_replaces": "stark_mlwe_tpu/fri/deep_ali.py:67",
+                 "shape": f"n={full_n}: f0_quotient(phi, w, z)",
+                 "layout": dict(zip(("threads", "per_thread", "b_threads"),
+                                    bi_layout)),
+                 "max_abs_err": err, "tolerance": 0,
+                 "ms": statistics.median(bi_samples),
+                 "ms_samples": bi_samples, "plain_ms": pms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "scratch_bytes_moved": 32 * bi_scratch * 2,
+                 "serial_floor_ms": floor_ms,
+                 "serial_floor_shape": "the total launch alone, n=1",
+                 "inv_products": inv_products,
+                 "registers": ptxas_registers(kernels.build_log.get(
+                     "fr_batch_inv", ""))})
+    del phi_q, w_q, want_q
 
     def edge_states(t):
         return fr.to_device(fr.pack_ints(
@@ -840,12 +946,16 @@ def main(argv=None) -> int:
     witness = MlweWitness.random(k=k, seed=SEED)
     witness_s = time.perf_counter() - t0
     random_cols = MlweWitness.random_unstructured(k=k, seed=SEED)
-    K2 = ["fr_mont_mul", "fr_add", "fr_sub"]
+    # K2 and the quotient on every prove path; `fr_sub` only where phi is
+    # formed on the card (the device witness): the quotient's w - z is part
+    # of `fr_batch_inv`.
+    F0 = ["fr_mont_mul", "fr_add", "fr_batch_inv"]
     by_path = {}
 
-    def drive(path, params, run, expected, absent_phase=None):
+    def drive(path, params, run, expected, absent_phase=None, counts_are=()):
         """One path: counts to 0, prove + verify, counts read; then the
-        proof's shape, the wire format and two tampered copies."""
+        proof's shape, the wire format and two tampered copies.
+        `counts_are`: (counter, launches) pairs the path must show."""
         kernels.reset_launches()
         sync()
         t0 = time.perf_counter()
@@ -883,6 +993,10 @@ def main(argv=None) -> int:
             missing = [n for n in expected if counts[n] == 0]
             if missing:
                 raise AssertionError(f"{path} launched no {missing}")
+            wrong = {n: counts[n] for n, c in counts_are if counts[n] != c}
+            if wrong:
+                raise AssertionError(f"{path}: launches {wrong}, expected "
+                                     f"{dict(counts_are)}")
         emit({"phase": "main_path", "path": path, "k": k,
               "schedule": params.schedule, "r": params.r, "verify": True,
               "tamper_refused": True, "proof_bytes": len(buf),
@@ -896,14 +1010,15 @@ def main(argv=None) -> int:
     # K1 by layout (`permute_layout`): the layer-0 leaf hash (65,536 states
     # of t=17) takes the thread layout, every tree level the warp layout.
     paper_kernels = ["poseidon_permute_t17", "poseidon_permute_warp_t17",
-                     "poseidon_permute_warp_t9", "fr_fold"] + K2
+                     "poseidon_permute_warp_t9", "fr_fold"] + F0
+    one_quotient = (("fr_batch_inv", 3),)
     buf_host = drive("paper, host witness", paper,
                      lambda: prove(witness, paper, device=dev),
-                     paper_kernels)
+                     paper_kernels, counts_are=one_quotient + (("fr_sub", 0),))
     buf_dev = drive("paper, device witness", paper,
                     lambda: prove_device_witness(witness, paper),
-                    paper_kernels + ["poseidon_absorb_chain"],
-                    absent_phase="ali/host_absorb")
+                    paper_kernels + ["poseidon_absorb_chain", "fr_sub"],
+                    absent_phase="ali/host_absorb", counts_are=one_quotient)
     if buf_dev != buf_host:
         raise AssertionError("main path: the device-witness proof differs "
                              "from the host-witness proof")
@@ -932,7 +1047,8 @@ def main(argv=None) -> int:
         k5_batches.clear()
         drive(f"{preset}, host witness", wparams,
               lambda: prove(random_cols, wparams, device=dev),
-              group_kernels + ["poseidon_permute_t17", "fr_fold"] + K2)
+              group_kernels + ["poseidon_permute_t17", "fr_fold"] + F0,
+              counts_are=one_quotient + (("fr_sub", 0),))
         k5_batches_by_path[f"{preset}, host witness"] = dict(k5_batches)
         emit({"phase": "main_path", "path": f"{preset}, host witness",
               "k5_launches_by_batch": dict(k5_batches)})

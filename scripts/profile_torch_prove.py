@@ -11,7 +11,9 @@ branch of `build_f0`), once to warm up (kernel build, constants), then once more
 seconds of the traced prove, seconds the card was busy (sum of device time
 over all kernels and copies), the idle share, and device time by kernel
 name, with the launches of the traced prove by counter
-(`kernels.launches`: K1's two layouts apart).  A second untraced prove is
+(`kernels.launches`: K1's two layouts apart).  The three launches of the
+f0 quotient (`fr_batch_inv_scan`, `_total`, `_sweep`) are always listed,
+and summed in `fr_batch_inv_device_ms`.  A second untraced prove is
 timed as well, so the cost of tracing shows.  With `--out` the chrome
 trace is written there.  Needs a CUDA device; exits with code 2 without
 one.
@@ -87,6 +89,8 @@ def main() -> int:
     busy = sum(v["device_ms"] for v in by_name.values()) / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"])
                [:12])
+    quotient = {k: v for k, v in by_name.items() if "fr_batch_inv" in k}
+    top |= quotient
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, "prove_trace.json"))
@@ -97,6 +101,8 @@ def main() -> int:
         "device_busy_seconds": busy,
         "device_idle_share": (1.0 - busy / traced) if busy else None,
         "phase_seconds": phases, "device_ms_by_kernel": top,
+        "fr_batch_inv_device_ms": sum(v["device_ms"]
+                                      for v in quotient.values()),
         "launches": {n: c for n, c in kernels.launches.items() if c}}))
     return 0
 

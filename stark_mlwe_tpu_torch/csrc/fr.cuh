@@ -1,5 +1,6 @@
 // Pallas scalar field Fr arithmetic on 4x64-bit Montgomery limbs (R = 2^256),
-// of K2 `fr_elementwise`, K3 `fr_fold` and K6 `fr_ntt` (through `ntt.cuh`).
+// of K3 `fr_fold` and K6 `fr_ntt` (through `ntt.cuh`); the other kernels are
+// on `fr32.cuh`.
 //
 // An element is 32 bytes, little-endian: the port's `[..., 8] int32` tensor
 // layout read as `u64[4]`.  The algorithms are those of the host engine

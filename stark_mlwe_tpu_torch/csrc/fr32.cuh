@@ -1,6 +1,7 @@
 // Pallas scalar field Fr on 8x32-bit Montgomery limbs (R = 2^256), written as
-// carry chains.  Included by K4 `poseidon_absorb_chain`, both layouts of K1
-// `poseidon_permute` and K5 `poseidon_permute_group` (through
+// carry chains.  Included by K2 `fr_elementwise`, the batch inversion
+// `fr_batch_inv` (with `batch_inv.cuh`), K4 `poseidon_absorb_chain`, both
+// layouts of K1 `poseidon_permute` and K5 `poseidon_permute_group` (through
 // `poseidon_chain.cuh`, `poseidon.cuh` and `poseidon_group.cuh`).
 //
 // An element is `u32[8]`, little-endian: the same bytes as the port's
@@ -22,6 +23,8 @@
 //                   of products with the constant pre-scaled by 2^320
 //                   (`native.pack_params`), reduced ONCE by fr32_redc320.
 //   fr32_redc320    T * 2^-320 mod P over a sliding 9-limb window.
+//   fr32_sub        a - b mod P: a borrow chain, then P added under a mask.
+//   fr32_inv        x^(P-2) on one thread, a fixed 4-bit window.
 //
 // Bounds.  P = 2^254 + 0x224698fc0994a8dd8c46eb2100000001 lies between 2^254
 // and 2^255, so 2P < 2^256 fits in 8 limbs, but 4P > 2^256: the classic lazy
@@ -173,6 +176,23 @@ FR32_FN void fr32_add(const u32 *a, const u32 *b, u32 *out) {
   fr32_reduce_once(s, out);
 }
 
+// out = a - b mod P (a, b < P): a - b + 2^256 after a borrow, so P is added
+// under the borrow's mask and the carry out of the top word dropped; out may
+// alias.
+FR32_FN void fr32_sub(const u32 *a, const u32 *b, u32 *out) {
+  u32 d[8];
+  Fr32Cc f;
+  d[0] = sub_cc(a[0], b[0], f);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) d[j] = subc_cc(a[j], b[j], f);
+  const u32 borrow = subc(0u, 0u, f);  // all ones when a < b
+  Fr32Cc g;
+  out[0] = add_cc(d[0], fr32_p(0) & borrow, g);
+#pragma unroll
+  for (int j = 1; j < 7; ++j) out[j] = addc_cc(d[j], fr32_p(j) & borrow, g);
+  out[7] = addc(d[7], fr32_p(7) & borrow, g);
+}
+
 // t (9 limbs) += m * P, the low words at j and the high words at j + 1; the
 // zero limbs of P become plain carry steps and P's low word (1) has no high
 // word.  The caller's bounds keep t below 2^288.
@@ -307,3 +327,71 @@ FR32_FN void fr32_redc320(const u32 *T, u32 *out) {
   // the value t[0..7] + c * 2^256 is below 2P < 2^256, so c == 0 here
   fr32_reduce_once(t, out);
 }
+
+// 4-bit digit k (0 = lowest) of the exponent P - 2 of Fermat's inverse.
+FR32_FN u32 fr32_inv_digit(int k) {
+  const int j = k >> 3;
+  const u32 w = j == 0 ? 0xffffffffu : j == 1 ? 0x8c46eb20u : fr32_p(j);
+  return (w >> (4 * (k & 7))) & 15u;
+}
+
+// out = x^(P-2) = x^-1 mod P on one thread, Montgomery in and out (a power
+// of x*R taken with Montgomery products is x^e * R); 0 gives 0.  A fixed
+// 4-bit window over the constant exponent, top digit (4) first: a table of
+// x^1 .. x^15 (14 products), then for each of the 63 lower digits four
+// squarings and, where the digit is not 0, one product by the table entry.
+// P - 2 has 30 nonzero digits below the top one: 14 + 252 + 30 = 296
+// dependent products.  The table is indexed by a digit known only at run
+// time, so on the card it lies in local memory (one thread runs this).
+FR32_FN void fr32_inv(const u32 *x, u32 *out) {
+  u32 tab[15][8];  // tab[i] = x^(i + 1)
+#pragma unroll
+  for (int l = 0; l < 8; ++l) tab[0][l] = x[l];
+#pragma unroll 1
+  for (int i = 1; i < 15; ++i) fr32_mont_mul<true>(tab[i - 1], x, tab[i]);
+  u32 r[8];
+  const u32 top = fr32_inv_digit(63);
+#pragma unroll
+  for (int l = 0; l < 8; ++l) r[l] = tab[top - 1][l];
+#pragma unroll 1
+  for (int k = 62; k >= 0; --k) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) fr32_mont_mul<true>(r, r, r);
+    const u32 d = fr32_inv_digit(k);
+    if (d) fr32_mont_mul<true>(r, tab[d - 1], r);
+  }
+#pragma unroll
+  for (int l = 0; l < 8; ++l) out[l] = r[l];
+}
+
+// One element of K2 `fr_elementwise`: OP 0 the Montgomery product a*b*2^-256,
+// 1 a + b, 2 a - b, all mod P and fully reduced.
+template <int OP>
+FR32_FN void fr32_binop(const u32 *a, const u32 *b, u32 *out) {
+  if (OP == 0) fr32_mont_mul<true>(a, b, out);
+  else if (OP == 1) fr32_add(a, b, out);
+  else fr32_sub(a, b, out);
+}
+
+// One element in or out of device memory as two 16-byte words (the port's
+// tensors are 32-byte aligned per element); plain copies under g++.
+#ifdef __CUDACC__
+FR32_FN void fr32_load_vec(const u32 *p, u32 *x) {
+  const uint4 lo = __ldg(reinterpret_cast<const uint4 *>(p));
+  const uint4 hi = __ldg(reinterpret_cast<const uint4 *>(p) + 1);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+FR32_FN void fr32_store_vec(u32 *p, const u32 *x) {
+  uint4 *q = reinterpret_cast<uint4 *>(p);
+  q[0] = make_uint4(x[0], x[1], x[2], x[3]);
+  q[1] = make_uint4(x[4], x[5], x[6], x[7]);
+}
+#else
+FR32_FN void fr32_load_vec(const u32 *p, u32 *x) {
+  for (int l = 0; l < 8; ++l) x[l] = p[l];
+}
+FR32_FN void fr32_store_vec(u32 *p, const u32 *x) {
+  for (int l = 0; l < 8; ++l) p[l] = x[l];
+}
+#endif

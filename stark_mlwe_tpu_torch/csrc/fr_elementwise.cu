@@ -4,35 +4,26 @@
 // Replaces the XLA-fused `fr.mont_mul` / `fr.add` / `fr.sub` of the JAX
 // package (ops/fr.py), which were limb-column graphs there; torch has no
 // 256-bit modular arithmetic, and a limb-by-limb emulation costs hundreds of
-// launches per multiply.  Bound: bytes (96 per element moved, ~130 64-bit
-// multiply-adds for a multiply), so the design is one thread per element
-// with 16-byte loads and nothing kept.
+// launches per multiply.  Bound: bytes (96 per element moved against one
+// Montgomery product of 8x32-bit limbs), so the design is one thread per
+// element with 16-byte loads and nothing kept; the element is `fr32.cuh`'s
+// `fr32_binop`, the routine `host_check.cpp` runs under g++.
 
 #include <cuda_runtime.h>
 
-#include "fr.cuh"
-
-FR_FN void fr_load_vec(const u64 *p, u64 *x) {
-  const ulonglong2 *q = reinterpret_cast<const ulonglong2 *>(p);
-  ulonglong2 lo = __ldg(q), hi = __ldg(q + 1);
-  x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
-}
+#include "fr32.cuh"
 
 template <int OP>
 __global__ void __launch_bounds__(256)
-fr_elementwise_kernel(const u64 *__restrict__ a, const u64 *__restrict__ b,
-                      u64 *__restrict__ out, long n, int a_step, int b_step) {
-  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+fr_elementwise_kernel(const u32 *__restrict__ a, const u32 *__restrict__ b,
+                      u32 *__restrict__ out, long n, int a_step, int b_step) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  u64 x[4], y[4], r[4];
-  fr_load_vec(a + i * 4 * a_step, x);
-  fr_load_vec(b + i * 4 * b_step, y);
-  if (OP == 0) fr_mont_mul(x, y, r);
-  else if (OP == 1) fr_add(x, y, r);
-  else fr_sub(x, y, r);
-  ulonglong2 *o = reinterpret_cast<ulonglong2 *>(out + i * 4);
-  o[0] = make_ulonglong2(r[0], r[1]);
-  o[1] = make_ulonglong2(r[2], r[3]);
+  u32 x[8], y[8], r[8];
+  fr32_load_vec(a + i * 8 * a_step, x);
+  fr32_load_vec(b + i * 8 * b_step, y);
+  fr32_binop<OP>(x, y, r);
+  fr32_store_vec(out + i * 8, r);
 }
 
 // op: 0 mont_mul, 1 add, 2 sub.  a_step / b_step: 1 for a full [n] operand,
@@ -43,8 +34,8 @@ extern "C" int fr_elementwise(int op, const void *a, const void *b, void *out,
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
-  const u64 *pa = (const u64 *)a, *pb = (const u64 *)b;
-  u64 *po = (u64 *)out;
+  const u32 *pa = (const u32 *)a, *pb = (const u32 *)b;
+  u32 *po = (u32 *)out;
   if (op == 0)
     fr_elementwise_kernel<0><<<blocks, threads, 0, s>>>(pa, pb, po, n, a_step, b_step);
   else if (op == 1)

@@ -1,12 +1,14 @@
 // Host build of the kernels' arithmetic (g++, no CUDA): the same `fr.cuh`,
-// `poseidon.cuh`, `ntt.cuh`, `fr32.cuh`, `poseidon_chain.cuh` and
-// `poseidon_group.cuh` the CUDA kernels include, behind a plain C interface,
+// `poseidon.cuh`, `ntt.cuh`, `fr32.cuh`, `poseidon_chain.cuh`,
+// `poseidon_group.cuh` and `batch_inv.cuh` the CUDA kernels include, behind a
+// plain C interface,
 // so the CPU tests can hold the device functions against the pure-Python
 // spec where there is no card.  Not used by the prover.
 
 #include <cstring>
 #include <vector>
 
+#include "batch_inv.cuh"
 #include "ntt.cuh"
 #include "poseidon.cuh"
 #include "poseidon_chain.cuh"
@@ -17,13 +19,16 @@ static const u64 K320[4] = {0x8c46eb2100000001ULL, 0xf12aec780994a8d9ULL,
 
 extern "C" {
 
+// K2 `fr_elementwise` (on `fr32.cuh`), one element after another.
 void hc_elementwise(int op, const u64 *a, const u64 *b, u64 *out, long n,
                     int a_step, int b_step) {
   for (long i = 0; i < n; ++i) {
-    const u64 *x = a + i * 4 * a_step, *y = b + i * 4 * b_step;
-    if (op == 0) fr_mont_mul(x, y, out + i * 4);
-    else if (op == 1) fr_add(x, y, out + i * 4);
-    else fr_sub(x, y, out + i * 4);
+    const u32 *x = (const u32 *)(a + i * 4 * a_step);
+    const u32 *y = (const u32 *)(b + i * 4 * b_step);
+    u32 *o = (u32 *)(out + i * 4);
+    if (op == 0) fr32_binop<0>(x, y, o);
+    else if (op == 1) fr32_binop<1>(x, y, o);
+    else fr32_binop<2>(x, y, o);
   }
 }
 
@@ -104,6 +109,14 @@ extern "C" void hc_fr32_mont_mul(const u32 *a, const u32 *b, u32 *out,
                                  long n) {
   for (long i = 0; i < n; ++i) fr32_mont_mul<true>(a + i * 8, b + i * 8,
                                                    out + i * 8);
+}
+
+extern "C" void hc_fr32_sub(const u32 *a, const u32 *b, u32 *out, long n) {
+  for (long i = 0; i < n; ++i) fr32_sub(a + i * 8, b + i * 8, out + i * 8);
+}
+
+extern "C" void hc_fr32_inv(const u32 *x, u32 *out, long n) {
+  for (long i = 0; i < n; ++i) fr32_inv(x + i * 8, out + i * 8);
 }
 
 extern "C" int hc_fr32_row_dot(const u32 *q, const u32 *x, u32 *out, long B,
@@ -283,4 +296,42 @@ extern "C" int hc_permute_group(u32 *states, long B, int t, int S, int K,
 extern "C" int hc_group_shape(int t, int S, int K, int C, int *threads,
                               int *bytes) {
   return pg_shape(t, S, K, C, threads, bytes);
+}
+
+// The batch inversion of `fr_batch_inv.cu`: the arguments of its entry point
+// without the stream, each launch's blocks one after another and, inside a
+// block, each step between two barriers run over all its threads.
+extern "C" int hc_batch_inv(const u32 *x, const u32 *z, const u32 *phi,
+                            u32 *out, u32 *scratch, long scratch_elems,
+                            long n, int threads, int per_thread,
+                            int b_threads, int stages) {
+  BiArgs a;
+  if (!bi_args(x, z, phi, out, scratch, scratch_elems, n, threads,
+               per_thread, b_threads, &a) ||
+      stages < 1 || stages > 7)
+    return 1;
+  std::vector<u32> shared(bi_shared_words(BI_MAX_THREADS));
+  u32 *sh = shared.data();
+  if (stages & 1)
+    for (long g = 0; g < a.G; ++g) {
+      for (int j = 0; j < a.T; ++j) bi_scan_load(a, sh, g, j);
+      for (int s = 0; (1 << s) < a.T; ++s)
+        for (int j = 0; j < a.T; ++j) bi_scan_step(sh, a.T, s, j);
+      for (int j = 0; j < a.T; ++j) bi_scan_store(a, sh, g, j);
+    }
+  if (stages & 2) {
+    for (int j = 0; j < a.TB; ++j) bi_total_load(a, sh, j);
+    for (int s = 0; (1 << s) < a.TB; ++s)
+      for (int j = 0; j < a.TB; ++j) bi_scan_step(sh, a.TB, s, j);
+    bi_total_invert(a, sh);
+    for (int j = 0; j < a.TB; ++j) bi_total_store(a, sh, j);
+  }
+  if (stages & 4)
+    for (long g = 0; g < a.G; ++g)
+      for (int j = 0; j < a.T; ++j) bi_sweep(a, g, j);
+  return 0;
+}
+
+extern "C" long hc_batch_inv_scratch(long n, int threads, int per_thread) {
+  return bi_scratch_elems(n, threads, per_thread);
 }

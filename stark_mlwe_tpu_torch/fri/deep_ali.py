@@ -4,9 +4,10 @@ Counterpart of `fri/deep_ali.py` of the JAX package (crates/deep_ali/src/
 lib.rs:48-105 of the Rust reference; golden spec in `spec.deep_ali`):
 
   - Phi = a*s + e - t (+ beta*R) is elementwise over the evaluation vector,
-  - the f0 quotient and the barycentric sum use `fr.batch_inv` (a blocked
-    Montgomery trick) where the reference does O(n) per-element modular
-    exponentiations,
+  - the f0 quotient is one batch-inversion kernel (`fr.f0_quotient`, three
+    launches, nothing read back) and the barycentric sum uses
+    `fr.batch_inv`, the same kernel, where the reference does O(n)
+    per-element modular exponentiations,
   - omega power tables come from `fr.powers` (doubling).
 
 Returns the f0 evaluation vector in Montgomery form, ready for FRI folding
@@ -44,7 +45,7 @@ def phi_kernel(a, s, e, t):
 
 
 def _f0_quotient(phi, w, z_m):
-    return fr.mont_mul(phi, fr.batch_inv(fr.sub(w, z_m)))
+    return fr.f0_quotient(phi, w, z_m)
 
 
 def f0_from_phi(phi0, w, z: int, beta: int = 0, r_eval=None):

@@ -24,7 +24,7 @@ from . import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _HEADERS = ("fr.cuh", "poseidon.cuh", "ntt.cuh", "fr32.cuh",
-            "poseidon_chain.cuh", "poseidon_group.cuh")
+            "poseidon_chain.cuh", "poseidon_group.cuh", "batch_inv.cuh")
 
 SOURCES = {
     "poseidon_permute": "poseidon_permute.cu",
@@ -33,6 +33,7 @@ SOURCES = {
     "poseidon_absorb_chain": "poseidon_absorb_chain.cu",
     "poseidon_permute_group": "poseidon_permute_group.cu",
     "fr_ntt": "fr_ntt.cu",
+    "fr_batch_inv": "fr_batch_inv.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,6 +53,7 @@ launches = {
     "poseidon_permute_group_t65": 0,
     "poseidon_permute_group_t129": 0,
     "fr_ntt_tiles": 0,
+    "fr_batch_inv": 0,      # one per launch: three a call (scan, total, sweep)
 }
 
 _libs: dict = {}
@@ -112,6 +114,10 @@ def _declare(name: str, lib) -> None:
         lib.fr_ntt_tiles.argtypes = [vp, vp, vp, vp, l, i, i, l, l, l, i,
                                      lp, lp, lp, vp]
         lib.fr_ntt_tiles.restype = i
+    elif name == "fr_batch_inv":
+        lib.fr_batch_inv.argtypes = [vp, vp, vp, vp, vp, l, l, i, i, i, i,
+                                     vp]
+        lib.fr_batch_inv.restype = i
 
 
 def build_all() -> None:

@@ -15,14 +15,15 @@ compares or shifts limb tensors without masking.
 Every function returns fully reduced values (in [0, P)).
 
 Kernels.  `mont_mul`, `add`, `sub` launch K2 `fr_elementwise`
-(csrc/fr_elementwise.cu) and `fold` launches K3 `fr_fold` (csrc/fr_fold.cu)
-on CUDA tensors; they replace the XLA-fused limb graphs `fr.mont_mul`,
-`fr.add`, `fr.sub` and `fr.mat_apply` of the JAX package.  On a CPU tensor
-each takes its plain PyTorch version (`*_plain`), which splits to 16-bit
-limbs in int64 because torch has no wide multiply; the plain versions run
-on any device and are what the kernels are held against.  `pow5`,
-`batch_inv`, `powers`, `reduce_add`, `to_mont`, `from_mont` are compositions
-of those launches.
+(csrc/fr_elementwise.cu), `fold` launches K3 `fr_fold` (csrc/fr_fold.cu),
+and `batch_inv` and `f0_quotient` launch the batch inversion `fr_batch_inv`
+(csrc/fr_batch_inv.cu) on CUDA tensors; they replace the XLA-fused limb
+graphs `fr.mont_mul`, `fr.add`, `fr.sub`, `fr.mat_apply` and `fr.batch_inv`
+of the JAX package.  On a CPU tensor each takes its plain PyTorch version
+(`*_plain`), which splits to 16-bit limbs in int64 because torch has no wide
+multiply; the plain versions run on any device and are what the kernels are
+held against.  `pow5`, `powers`, `reduce_add`, `to_mont`, `from_mont` are
+compositions of those launches.
 """
 
 from __future__ import annotations
@@ -362,23 +363,24 @@ def from_mont(x: torch.Tensor) -> torch.Tensor:
 
 def inv(x: torch.Tensor) -> torch.Tensor:
     """Elementwise Fermat inverse, Montgomery in and out, computed on the
-    host with Python `pow` after a readback.  Used once per `batch_inv`, on
-    its single running total."""
+    host with Python `pow` after a readback (0 gives 0): the last step of
+    `batch_inv_plain`, on its single running total."""
     vals = unpack_ints(x, mont=True)
     out = pack_ints([pow(v, P - 2, P) for v in vals], mont=True)
     return to_device(out, x.device).reshape(x.shape)
 
 
 def _split(n: int) -> int:
-    """Rows of the blocked layout of `batch_inv`: about sqrt(n)."""
+    """Rows of the blocked layout of `batch_inv_plain`: about sqrt(n)."""
     c = 1
     while c * c < n:
         c *= 2
     return c
 
 
-def batch_inv(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverse of x: [n, 8] (all nonzero), Montgomery form.
+def batch_inv_plain(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of x: [n, 8], Montgomery form (a zero anywhere
+    gives all zeros).
 
     Blocked Montgomery trick: x is laid out as [C, W] with C ~ sqrt(n); a
     sequential prefix product over the C rows (each step one multiply over
@@ -396,14 +398,107 @@ def batch_inv(x: torch.Tensor) -> torch.Tensor:
     rows = x.reshape(C, W, N)
     prefix = [rows[0]]
     for c in range(1, C):
-        prefix.append(mont_mul(prefix[-1], rows[c]))
-    acc = batch_inv(prefix[-1])
+        prefix.append(mont_mul_plain(prefix[-1], rows[c]))
+    acc = batch_inv_plain(prefix[-1])
     out = [None] * C
     for c in range(C - 1, 0, -1):
-        out[c] = mont_mul(acc, prefix[c - 1])
-        acc = mont_mul(acc, rows[c])
+        out[c] = mont_mul_plain(acc, prefix[c - 1])
+        acc = mont_mul_plain(acc, rows[c])
     out[0] = acc
     return torch.stack(out, dim=0).reshape(C * W, N)[:n]
+
+
+def f0_quotient_plain(phi: torch.Tensor, w: torch.Tensor,
+                      z_m: torch.Tensor) -> torch.Tensor:
+    return mont_mul_plain(phi, batch_inv_plain(sub_plain(w, z_m)))
+
+
+BATCH_INV_THREADS = 128       # threads a block of the scan and the sweep
+BATCH_INV_MAX_BLOCKS = 1024   # block totals the one total block takes
+
+
+def batch_inv_layout(n: int, threads: int = BATCH_INV_THREADS,
+                     per_thread: int | None = None) -> tuple:
+    """(threads, per_thread, b_threads) of `fr_batch_inv` for n elements:
+    blocks of `threads` threads with runs of one element while that needs
+    at most `BATCH_INV_MAX_BLOCKS` blocks (65,536 elements: 512 blocks,
+    about four warps a sub-partition of each of the 132 SMs), runs doubled
+    beyond, unless `per_thread` is given; the total block of the fewest
+    threads from 32 to 256 that covers the block totals."""
+    T = threads
+    E = per_thread or 1
+    while per_thread is None and -(-n // (T * E)) > BATCH_INV_MAX_BLOCKS:
+        E *= 2
+    G = -(-n // (T * E))
+    TB = 32
+    while TB < min(G, 256):
+        TB *= 2
+    return T, E, TB
+
+
+def batch_inv_scratch(n: int, layout: tuple) -> int:
+    """Elements of scratch `fr_batch_inv` takes (`bi_scratch_elems` of
+    csrc/batch_inv.cuh): the run products when runs are longer than one,
+    a product per thread, and three per block."""
+    T, E, _ = layout
+    G = -(-n // (T * E))
+    return (n if E > 1 else 0) + G * T + 3 * G
+
+
+def _batch_inv(name, x, z, phi) -> torch.Tensor:
+    """out = phi * (x - z)^-1 through the three launches of `fr_batch_inv`
+    (z, phi: None when absent); x, phi [n, 8], z [8], all on one CUDA
+    device."""
+    n = int(x.shape[0])
+    layout = batch_inv_layout(n)
+    ops = [None if t is None else t.contiguous() for t in (x, z, phi)]
+    out = torch.empty((n, N), dtype=torch.int32, device=x.device)
+    scratch = torch.empty((batch_inv_scratch(n, layout), N),
+                          dtype=torch.int32, device=x.device)
+    lib = kernels.lib("fr_batch_inv")
+    rc = lib.fr_batch_inv(*[None if t is None else t.data_ptr()
+                            for t in ops],
+                          out.data_ptr(), scratch.data_ptr(),
+                          int(scratch.shape[0]), n, *layout, 7,
+                          kernels.stream_ptr())
+    kernels.check(rc, name)
+    kernels.launches["fr_batch_inv"] += 3
+    return out
+
+
+def _check_batch(name, *xs) -> None:
+    for x in xs:
+        _check_limbs(x, name)
+    if xs[0].dim() != 2 or xs[0].shape[0] < 1 or any(
+            x.shape != xs[0].shape for x in xs[1:]):
+        raise ValueError(f"{name}: expected [n, 8] operands of one shape, "
+                         f"n >= 1; got {[tuple(x.shape) for x in xs]}")
+
+
+def batch_inv(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of x: [n, 8], Montgomery form; a zero anywhere
+    gives all zeros (as the JAX package's `batch_inv`)."""
+    _check_batch("fr_batch_inv", x)
+    if not x.is_cuda:
+        return batch_inv_plain(x)
+    return _batch_inv("fr_batch_inv", x, None, None)
+
+
+def f0_quotient(phi: torch.Tensor, w: torch.Tensor,
+                z_m: torch.Tensor) -> torch.Tensor:
+    """The DEEP-ALI quotient phi * (w - z)^-1: phi, w [n, 8], z_m [8], all
+    Montgomery form, on one device; one `fr_batch_inv` call on the card."""
+    _check_batch("f0_quotient", phi, w)
+    _check_limbs(z_m, "f0_quotient")
+    if z_m.numel() != N:
+        raise ValueError(f"f0_quotient: z_m must be one element, got "
+                         f"{tuple(z_m.shape)}")
+    if not (phi.device == w.device == z_m.device):
+        raise ValueError(f"f0_quotient: operands on {phi.device}, "
+                         f"{w.device} and {z_m.device}")
+    if not w.is_cuda:
+        return f0_quotient_plain(phi, w, z_m)
+    return _batch_inv("f0_quotient", w, z_m, phi)
 
 
 def powers(base: torch.Tensor, n: int) -> torch.Tensor:

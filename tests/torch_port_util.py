@@ -64,8 +64,8 @@ _HC = None
 def host_check_lib():
     """The kernels' arithmetic (csrc/fr.cuh, csrc/poseidon.cuh,
     csrc/ntt.cuh, csrc/fr32.cuh, csrc/poseidon_chain.cuh,
-    csrc/poseidon_group.cuh) compiled for the host with g++ from
-    csrc/host_check.cpp."""
+    csrc/poseidon_group.cuh, csrc/batch_inv.cuh) compiled for the host with
+    g++ from csrc/host_check.cpp."""
     global _HC
     if _HC is None:
         import stark_mlwe_tpu_torch
@@ -93,6 +93,15 @@ def host_check_lib():
         vp, c_int, c_long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         lib.hc_fr32_mont_mul.argtypes = [vp, vp, vp, c_long]
         lib.hc_fr32_mont_mul.restype = None
+        lib.hc_fr32_sub.argtypes = [vp, vp, vp, c_long]
+        lib.hc_fr32_sub.restype = None
+        lib.hc_fr32_inv.argtypes = [vp, vp, c_long]
+        lib.hc_fr32_inv.restype = None
+        lib.hc_batch_inv.argtypes = ([vp] * 5 + [c_long, c_long]
+                                     + [c_int] * 4)
+        lib.hc_batch_inv.restype = c_int
+        lib.hc_batch_inv_scratch.argtypes = [c_long, c_int, c_int]
+        lib.hc_batch_inv_scratch.restype = c_long
         lib.hc_fr32_row_dot.argtypes = [vp, vp, vp, c_long, c_int]
         lib.hc_fr32_row_dot.restype = c_int
         lib.hc_absorb_chain.argtypes = ([vp, vp, vp, c_int, c_long, c_long,
