@@ -32,12 +32,17 @@ each, and exits non-zero as soon as one fails:
              time per block over the host engine's (medians of several
              runs each, the host engine's samples beside them), the SASS
              instructions of each of its instances (`cuobjdump`), and its
-             registers and spills from the compiler's report.  The NTT tile
-             kernel is compared at every length from 2 to 4,096, forward
-             and inverse, with no, a full and a periodic epilogue, on contiguous and strided views, ragged
-             batches and edge values, and timed at the two launches that
-             n = 2^22 gives it (2,048 transforms of length 2,048: the
-             columns with the step twiddles, then the rows).  The batch
+             registers and spills from the compiler's report.  The fold K3
+             is compared at m = 8, 16, 32, 64, 128 (random values with a
+             ragged last block, all P-1, zeros), 3 and 1,024, and timed at
+             n = 65,536 for m = 16 (`ms`) and 32, 64, 128 (`ms_by_m`).  The
+             NTT tile kernel is compared at every length from 2 to 4,096,
+             forward and inverse, with no, a full and a periodic epilogue,
+             on contiguous and strided views, ragged batches and edge
+             values, and timed at the two launches that n = 2^22 gives it
+             (2,048 transforms of length 2,048: the columns with the step
+             twiddles, then the rows; medians of 7, samples printed).  The
+             batch
              inversion `fr_batch_inv` (the f0 quotient of every prove path,
              three launches) is held at the prover's n = 65,536, at edge
              values, at n = 1, 2, 3, 1,001 and 2^17 + 3 (runs of two
@@ -116,7 +121,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT_OPS_PER_S = 67e12
 OPS_PER_MAC64 = 8              # 64x64->128 multiply-add = 4 32-bit ones
 
-# 64-bit multiplies of the field primitives (csrc/fr.cuh).
+# The work of the field primitives, counted in 64x64-bit multiply-adds
+# whatever limbs the kernels use (each is four 32-bit ones on `fr32.cuh`).
 MAC_MONT_MUL = 36              # 16 a*b + 16 m*P + 4 m
 MAC_ACC_MUL = 16
 MAC_REDC320 = 25
@@ -377,33 +383,55 @@ def main(argv=None) -> int:
                      "tolerance": 0, "bound_ms": bms, "bound_by": by,
                      "library_ms": None})
 
-    # K3 fr_fold
+    # K3 fr_fold: exact at every arity the prove paths fold by (8, 16, 32,
+    # 64, 128) on random values with a ragged last block, on all P-1 and on
+    # zeros, and at m = 3 and 1,024; timed at n = 65,536 for m = 16 (the
+    # paper schedule's first fold: the row's `ms`) and m = 32, 64, 128 (the
+    # wide presets' folds: `ms_by_m`).
+    err = 0
+    worst = fr.to_device(fr.pack_ints([P - 1] * (128 * 7)), dev)
+    for mw in (8, 16, 32, 64, 128, 3, 1024):
+        per_block = 128 // min(32, 1 << (mw.bit_length() - 1))
+        nw = per_block + 3
+        fw, zw = rand_elems(mw * nw), rand_elems(mw)
+        err = max(err, check_exact(f"fr_fold (m={mw}, {nw} outputs)",
+                                   fr.fold(fw, zw), fr.fold_plain(fw, zw)))
+        if mw <= 128:
+            err = max(err, check_exact(
+                f"fr_fold (m={mw}, all P-1)", fr.fold(worst[:mw * 7],
+                                                      worst[:mw]),
+                fr.fold_plain(worst[:mw * 7], worst[:mw])))
+            zero = torch.zeros_like(fw)
+            err = max(err, check_exact(f"fr_fold (m={mw}, zeros)",
+                                       fr.fold(zero, zw),
+                                       fr.fold_plain(zero, zw)))
+    fold_ms, fold_bound = {}, {}
+    n_fold = max(full_n, 1024)
+    f = rand_elems(n_fold)
+    for mw in (16, 32, 64, 128):
+        zw = rand_elems(mw)
+        err = max(err, check_exact(f"fr_fold (n={n_fold}, m={mw})",
+                                   fr.fold(f, zw), fr.fold_plain(f, zw)))
+        fold_ms[str(mw)] = time_ms(lambda: fr.fold(f, zw), 7, inner=20)
+        nout = n_fold // mw
+        fold_bound[str(mw)] = bound(32 * (n_fold + mw + nout),
+                                    nout * (mw * MAC_ACC_MUL
+                                            + MAC_REDC320))[0]
     m = 16
-    f = rand_elems(full_n)
     zp = rand_elems(m)
-    err = check_exact("fr_fold", fr.fold(f, zp), fr.fold_plain(f, zp))
-    worst = fr.to_device(fr.pack_ints([P - 1] * (m * 7)), dev)
-    err = max(err, check_exact("fr_fold (all P-1)",
-                               fr.fold(worst, worst[:m]),
-                               fr.fold_plain(worst, worst[:m])))
-    f8 = f[:8 * 37]
-    err = max(err, check_exact("fr_fold (m=8, ragged)", fr.fold(f8, zp[:8]),
-                               fr.fold_plain(f8, zp[:8])))
-    for mw in (32, 64, 128):            # the wide presets' folds
-        fw, zw = rand_elems(mw * 5), rand_elems(mw)
-        err = max(err, check_exact(f"fr_fold (m={mw})", fr.fold(fw, zw),
-                                   fr.fold_plain(fw, zw)))
-    ms = time_ms(lambda: fr.fold(f, zp), 7, inner=20)
     pms = time_ms(lambda: fr.fold_plain(f, zp), 3)
-    nout = full_n // m
-    bms, by = bound(32 * (full_n + m + nout),
+    nout = n_fold // m
+    bms, by = bound(32 * (n_fold + m + nout),
                     nout * (m * MAC_ACC_MUL + MAC_REDC320))
     rows.append({"name": "fr_fold", "route": "cuda",
                  "source": "stark_mlwe_tpu_torch/csrc/fr_fold.cu",
                  "replaces": "stark_mlwe_tpu/fri/__init__.py:198",
-                 "shape": f"n={full_n}, m={m}", "max_abs_err": err,
-                 "tolerance": 0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                 "bound_by": by, "library_ms": None})
+                 "shape": f"n={n_fold}, m={m}", "max_abs_err": err,
+                 "tolerance": 0, "ms": fold_ms["16"], "plain_ms": pms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "ms_by_m": fold_ms, "bound_ms_by_m": fold_bound,
+                 "registers": ptxas_registers(kernels.build_log.get(
+                     "fr_fold", ""))})
 
     # fr_batch_inv: the f0 quotient phi / (w - z) of every prove path (one
     # call, three launches) and `fr.batch_inv`, held exactly against the
@@ -792,6 +820,8 @@ def main(argv=None) -> int:
     # K6 fr_ntt_tiles: every tile length, forward and inverse, without and
     # with a full epilogue; then the kinds of view the recursion and the
     # batched entry points hand it; then the two launches of n = 2^22.
+    # Every length splits its stages into passes of two with one stage
+    # first where log2 L is odd, so both splits are held.
     def tiles_case(label, x, wt, ep=None, out=None):
         got = dntt.ntt_tiles(x, wt, ep, out=out)
         sync()
@@ -852,10 +882,12 @@ def main(argv=None) -> int:
                               tmp.transpose(0, 1)))
     err = max(err, tiles_case("rows of n", tmp, wt2, None,
                               out22.transpose(0, 1)))
-    ms = time_ms(lambda: dntt.ntt_tiles(cols, wt1, ep22,
-                                        out=tmp.transpose(0, 1)), 5)
-    ms_rows = time_ms(lambda: dntt.ntt_tiles(tmp, wt2, None,
-                                             out=out22.transpose(0, 1)), 5)
+    ms_samples = time_samples(lambda: dntt.ntt_tiles(
+        cols, wt1, ep22, out=tmp.transpose(0, 1)), 7)
+    ms = statistics.median(ms_samples)
+    rows_samples = time_samples(lambda: dntt.ntt_tiles(
+        tmp, wt2, None, out=out22.transpose(0, 1)), 7)
+    ms_rows = statistics.median(rows_samples)
     pms = time_ms(lambda: dntt.ntt_tiles_plain(cols, wt1, ep22), 1)
     bms, by = bound(32 * (3 * n_ntt + m1 // 2),
                     m2 * ntt_tile_macs(m1, True))
@@ -868,10 +900,13 @@ def main(argv=None) -> int:
                           f"{m1}x{m2} matrix, with the step twiddles",
                  "max_abs_err": err, "tolerance": 0, "ms": ms,
                  "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                 "library_ms": None,
+                 "library_ms": None, "ms_samples": ms_samples,
+                 "registers": ptxas_registers(kernels.build_log.get(
+                     "fr_ntt", "")),
                  "rows_launch": {"shape": f"L={m2}, B={m1}: its rows, no "
                                           f"epilogue, strided store",
-                                 "ms": ms_rows, "bound_ms": bms_rows,
+                                 "ms": ms_rows, "ms_samples": rows_samples,
+                                 "bound_ms": bms_rows,
                                  "bound_by": by_rows}})
     del x22, cols, tmp, out22, ep22
     emit({"phase": "kernels", "card": card, "exact": True,

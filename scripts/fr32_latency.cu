@@ -7,16 +7,14 @@
 // (about the same cycles) or run one after the other (about twice).
 // Variants:
 //   0  fr32_mont_mul<true>   csrc/fr32.cuh: 32-bit limbs, PTX carry chains
-//   1  fr_mont_mul           csrc/fr.cuh: 64-bit limbs, carries by compares
-//   2  u64_cios_mul          below: 32-bit limbs, 64-bit intermediates in
+//   1  u64_cios_mul          below: 32-bit limbs, 64-bit intermediates in
 //                            plain C (the compiler allocates the carries)
-//   3  fr32_acc_mul          csrc/fr32.cuh: one lazy product added into a
+//   2  fr32_acc_mul          csrc/fr32.cuh: one lazy product added into a
 //                            17-limb row sum (the chain runs through the sum)
 // Not part of the port: a measuring tool, built by the script that runs it.
 
 #include <cuda_runtime.h>
 
-#include "../stark_mlwe_tpu_torch/csrc/fr.cuh"
 #include "../stark_mlwe_tpu_torch/csrc/fr32.cuh"
 
 // CIOS on 32-bit words with 64-bit intermediates: out = a*b*2^-256 mod P.
@@ -52,22 +50,13 @@ __device__ __forceinline__ void u64_cios_mul(const u32 *a, const u32 *b,
 }
 
 template <int V>
-__device__ __forceinline__ void step(u32 *x, u64 *x64, const u32 *y,
-                                     const u64 *y64, u32 *acc) {
+__device__ __forceinline__ void step(u32 *x, const u32 *y, u32 *acc) {
   if (V == 0) fr32_mont_mul<true>(x, y, x);
-  if (V == 1) fr_mont_mul(x64, y64, x64);
-  if (V == 2) u64_cios_mul(x, y, x);
-  if (V == 3) {
+  if (V == 1) u64_cios_mul(x, y, x);
+  if (V == 2) {
     fr32_acc_mul(x, y, acc);
     x[0] ^= acc[16];  // the next product waits for this one's sum
   }
-}
-
-// The same bytes as 4 x 64-bit limbs (variant 1 keeps its state so).
-__device__ __forceinline__ void pack64(const u32 *x, u64 *x64) {
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-    x64[l] = (u64)x[2 * l] | ((u64)x[2 * l + 1] << 32);
 }
 
 template <int V, int CHAINS>
@@ -75,36 +64,26 @@ __global__ void __launch_bounds__(32)
 latency_kernel(const u32 *in, u32 *out, long iters, long long *cycles) {
   const int lane = threadIdx.x;
   u32 x[CHAINS][8], y[8], acc[CHAINS][FR32_ACC];
-  u64 x64[CHAINS][4], y64[4];
 #pragma unroll
   for (int c = 0; c < CHAINS; ++c) {
     fr32_load(in + (lane * 3 + c) * 8, x[c]);
-    pack64(x[c], x64[c]);
 #pragma unroll
     for (int l = 0; l < FR32_ACC; ++l) acc[c][l] = 0;
   }
   fr32_load(in + (lane * 3 + 2) * 8, y);
-  pack64(y, y64);
   __syncwarp();
   const long long t0 = clock64();
 #pragma unroll 1
   for (long it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int c = 0; c < CHAINS; ++c) step<V>(x[c], x64[c], y, y64, acc[c]);
+    for (int c = 0; c < CHAINS; ++c) step<V>(x[c], y, acc[c]);
   }
   const long long t1 = clock64();
 #pragma unroll
   for (int c = 0; c < CHAINS; ++c) {
-    if (V == 1) {
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        x[c][2 * l] = (u32)x64[c][l];
-        x[c][2 * l + 1] = (u32)(x64[c][l] >> 32);
-      }
-    }
 #pragma unroll
     for (int l = 0; l < 8; ++l)
-      out[(lane * 2 + c) * 8 + l] = x[c][l] ^ (V == 3 ? acc[c][l] : 0u);
+      out[(lane * 2 + c) * 8 + l] = x[c][l] ^ (V == 2 ? acc[c][l] : 0u);
   }
   if (lane == 0) cycles[0] = t1 - t0;
 }
@@ -123,8 +102,6 @@ extern "C" int fr32_latency(int variant, int chains, const void *in,
     case 6: LAUNCH(1, 2); break;
     case 9: LAUNCH(2, 1); break;
     case 10: LAUNCH(2, 2); break;
-    case 13: LAUNCH(3, 1); break;
-    case 14: LAUNCH(3, 2); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH

@@ -1,22 +1,24 @@
 // Pallas scalar field Fr on 8x32-bit Montgomery limbs (R = 2^256), written as
-// carry chains.  Included by K2 `fr_elementwise`, the batch inversion
-// `fr_batch_inv` (with `batch_inv.cuh`), K4 `poseidon_absorb_chain`, both
-// layouts of K1 `poseidon_permute` and K5 `poseidon_permute_group` (through
-// `poseidon_chain.cuh`, `poseidon.cuh` and `poseidon_group.cuh`).
+// carry chains: the one Fr arithmetic of the port's kernels.  Included by K2
+// `fr_elementwise`, the batch inversion `fr_batch_inv` (with
+// `batch_inv.cuh`), K3 `fr_fold` (with `fold.cuh`), K4
+// `poseidon_absorb_chain`, both layouts of K1 `poseidon_permute`, K5
+// `poseidon_permute_group` (through `poseidon_chain.cuh`, `poseidon.cuh` and
+// `poseidon_group.cuh`) and K6 `fr_ntt_tiles` (with `ntt.cuh`).
 //
 // An element is `u32[8]`, little-endian: the same bytes as the port's
-// `[..., 8] int32` layout and as the `u64[4]` of `fr.cuh`, so no tensor or
-// constant is repacked and every result is the same canonical value.
+// `[..., 8] int32` layout and as a `u64[4]`, so no tensor or constant is
+// repacked and every result is the same canonical value.
 //
 // The card's integer multiplier is 32 bits wide.  On it every step below is
 // ONE PTX instruction (`mad.lo.cc.u32`, `madc.hi.cc.u32`, `addc.cc.u32`, ...)
-// with the carry in the condition-code flag, instead of the compare-based
-// carries of `fr.cuh` (about 15 dependent instructions per 64-bit
+// with the carry in the condition-code flag, instead of compare-based
+// carries on 64-bit limbs (about 15 dependent instructions per 64-bit
 // multiply-add).  Without `__CUDACC__` the same steps are portable C++ with
 // the flag held in a variable, one function per PTX instruction, so
 // `host_check.cpp` runs exactly the kernel's limb schedule with g++.
 //
-// Algorithms (those of `fr.cuh`, on 32-bit words):
+// Algorithms (on 32-bit words):
 //   fr32_mont_mul   CIOS, 9-limb accumulator: a*b*2^-256 mod P.
 //   fr32_acc_mul    acc (17 limbs) += a*b, the 512-bit product unreduced:
 //                   a row sum of Poseidon's constant matrices is a lazy sum

@@ -10,48 +10,42 @@
 // launch and the two transposes around every level of the four-step recursion
 // exist there because that machine needs the batch in its lane dimension.
 //
-// Design: a block of 256 threads owns whole transforms in shared memory
-// (`ntt.cuh`): one of L >= 1024, or 1024/L shorter ones.  It reads their
-// elements where they lie - element stride and per-level batch strides are
-// arguments, so a transform may be a column of a matrix - placing element i
-// in slot bitrev(i); runs the log2 L stages there with one block barrier
-// each; multiplies by the epilogue entry and writes with strides of its own.
-// An element is 32 bytes, one DRAM sector, so a strided access wastes no
-// memory traffic.  The stage twiddles w_L^j (L/2 elements, at most 64 KB) are
-// read through the read-only path and stay in L1/L2.
-//
-// Bound: each element is read once and written once (64 bytes) against
-// (log2 L)/2 + 1 Montgomery products of 36 64-bit multiply-adds, so the
-// kernel is bound by integer operations from L = 4 on.  Shared memory holds
-// elements as 4 x 64-bit words side by side, so at power-of-two strides the
-// accesses of a warp fall on few banks; a layout against that is left to a
-// later change.
+// What bounds it on this card: the Montgomery products.  Each element is
+// read once and written once (64 bytes) against (log2 L)/2 + 1 products, so
+// the work is integer multiply-adds from L = 4 on; at the 2^22 columns
+// (2,048 transforms of 2,048 with the step table) that is 25.2 M products
+// against 134 MB of reads and writes.  The design (`ntt.cuh`) spends the
+// card's issue on them and little else:
+//   - the products are `fr32.cuh`'s carry chains (909 cycles of one warp a
+//     product, against 1,392 for compare-based carries on 64-bit limbs);
+//   - a thread holds 2^R elements in registers and runs R stages on them
+//     between two barriers (radix-2^R passes, R = NTT_R = 2), so a
+//     transform of 2,048 takes 6 pass barriers and shared-memory round
+//     trips where a barrier a stage would take 11;
+//   - shared memory holds eight limb planes under a bank swizzle, so every
+//     warp access of the load, the passes and the store meets 32 banks
+//     (elements stored whole, 32 bytes apart, would meet 4-way conflicts);
+//   - a block of one transform of 2,048 (64 KB) has 256 threads, two
+//     groups of four elements a thread each pass, and at most 128 registers
+//     a thread (its bound of 512; `ptxas -v` in chip_smoke.py's log), so
+//     two blocks share an SM (16 warps): 2,048 transforms are 8 waves of
+//     264 blocks.
+// Other radices, thread counts and transforms a block, built from the same
+// steps, are timed beside this one by scripts/ntt_tile_sweep.py.
+// A block reads its transforms' elements where they lie - element stride and
+// per-level batch strides are arguments, so a transform may be a column of a
+// matrix - and writes with strides of its own.  An element is 32 bytes, one
+// DRAM sector, so a strided access wastes no memory traffic.  The stage
+// twiddles w_L^j (L/2 elements, at most 64 KB) are read through the
+// read-only path and stay in L1/L2.
 
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"
 
-#define NTT_THREADS 256
-#define NTT_MAX_LOG_L 12
-
-__global__ void __launch_bounds__(NTT_THREADS)
+__global__ void __launch_bounds__(NTT_MAX_THREADS)
 fr_ntt_tiles_kernel(const NttTileArgs a) {
-  extern __shared__ __align__(16) u64 sh[];
-  long *offs = (long *)(sh + ((size_t)a.tpb << a.logL) * 4);
-  const unsigned tid = threadIdx.x, nthreads = blockDim.x;
-  const long first = (long)blockIdx.x * a.tpb;
-  const long left = a.B - first;
-  const int nvalid = left < a.tpb ? (int)left : a.tpb;
-
-  ntt_offsets_thread(a, first, nvalid, offs, tid, nthreads);
-  __syncthreads();
-  ntt_load_thread(a, nvalid, sh, offs, tid, nthreads);
-  __syncthreads();
-  for (int s = 0; s < a.logL; ++s) {
-    ntt_stage_thread(a, nvalid, sh, s, tid, nthreads);
-    __syncthreads();
-  }
-  ntt_store_thread(a, nvalid, sh, offs, tid, nthreads);
+  ntt_tile_block<NTT_R>(a);
 }
 
 // Strides are in elements of 32 bytes.  `cnt`, `in_bs`, `out_bs` are host
@@ -61,39 +55,11 @@ extern "C" int fr_ntt_tiles(const void *in, void *out, const void *wt,
                             long in_es, long out_es, long ep_period, int nlev,
                             const long *cnt, const long *in_bs,
                             const long *out_bs, void *stream) {
-  if (B <= 0 || logL < 1 || logL > NTT_MAX_LOG_L || tpb < 1 || nlev < 1 ||
-      nlev > NTT_MAX_LEVELS || (ep != nullptr && ep_period < 1))
-    return (int)cudaErrorInvalidValue;
-  const long blocks = (B + tpb - 1) / tpb;
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   NttTileArgs a;
-  a.in = (const u64 *)in;
-  a.out = (u64 *)out;
-  a.wt = (const u64 *)wt;
-  a.ep = (const u64 *)ep;
-  a.B = B;
-  a.logL = logL;
-  a.tpb = tpb;
-  a.in_es = in_es;
-  a.out_es = out_es;
-  a.ep_period = ep_period;
-  a.nlev = nlev;
-  for (int k = 0; k < NTT_MAX_LEVELS; ++k) {
-    a.cnt[k] = k < nlev ? cnt[k] : 1;
-    a.in_bs[k] = k < nlev ? in_bs[k] : 0;
-    a.out_bs[k] = k < nlev ? out_bs[k] : 0;
-  }
-  const size_t shared = ntt_shared_bytes(logL, tpb);
-  // More than 48 KB of dynamic shared memory has to be asked for, once.
+  if (!ntt_args(&a, in, out, wt, ep, B, logL, tpb, in_es, out_es, ep_period,
+                nlev, cnt, in_bs, out_bs, NTT_R))
+    return (int)cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
-  if (shared > allowed) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        fr_ntt_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shared);
-    if (rc != cudaSuccess) return (int)rc;
-    allowed = shared;
-  }
-  fr_ntt_tiles_kernel<<<(unsigned)blocks, NTT_THREADS, shared,
-                        (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return ntt_launch(fr_ntt_tiles_kernel, a, ntt_threads(logL, tpb),
+                    (cudaStream_t)stream, allowed);
 }

@@ -1,21 +1,19 @@
-// Host build of the kernels' arithmetic (g++, no CUDA): the same `fr.cuh`,
-// `poseidon.cuh`, `ntt.cuh`, `fr32.cuh`, `poseidon_chain.cuh`,
-// `poseidon_group.cuh` and `batch_inv.cuh` the CUDA kernels include, behind a
-// plain C interface,
-// so the CPU tests can hold the device functions against the pure-Python
-// spec where there is no card.  Not used by the prover.
+// Host build of the kernels' arithmetic (g++, no CUDA): the same
+// `fr32.cuh`, `fold.cuh`, `ntt.cuh`, `poseidon.cuh`, `poseidon_chain.cuh`,
+// `poseidon_group.cuh` and `batch_inv.cuh` the CUDA kernels include, behind
+// a plain C interface, so the CPU tests can hold the device functions
+// against the pure-Python spec where there is no card.  Not used by the
+// prover.
 
 #include <cstring>
 #include <vector>
 
 #include "batch_inv.cuh"
+#include "fold.cuh"
 #include "ntt.cuh"
 #include "poseidon.cuh"
 #include "poseidon_chain.cuh"
 #include "poseidon_group.cuh"
-
-static const u64 K320[4] = {0x8c46eb2100000001ULL, 0xf12aec780994a8d9ULL,
-                            0x76e59c0fd9ad5c89ULL, 0x3fffffffffffffffULL};
 
 extern "C" {
 
@@ -29,17 +27,6 @@ void hc_elementwise(int op, const u64 *a, const u64 *b, u64 *out, long n,
     if (op == 0) fr32_binop<0>(x, y, o);
     else if (op == 1) fr32_binop<1>(x, y, o);
     else fr32_binop<2>(x, y, o);
-  }
-}
-
-void hc_fold(const u64 *f, const u64 *zpow, u64 *out, long nout, int m) {
-  u64 zs[1024 * 4];
-  for (int t = 0; t < m; ++t) fr_mont_mul(zpow + t * 4, K320, zs + t * 4);
-  for (long b = 0; b < nout; ++b) {
-    u64 acc[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-    for (int t = 0; t < m; ++t)
-      fr_acc_mul(zs + t * 4, f + (b * m + t) * 4, acc);
-    fr_redc320(acc, out + b * 4);
   }
 }
 
@@ -67,40 +54,41 @@ int hc_permute(u64 *states, long B, int t, int rf, int rp, const u64 *mds,
 // The NTT tile kernel of `fr_ntt.cu` with its blocks run one after another
 // and, inside a block, each step between two barriers as a loop over the
 // thread index.  The arguments are those of the CUDA entry point, with the
-// number of threads of a block in place of the stream.
+// number of threads of a block (any count: the steps are strided loops) in
+// place of the stream.
 extern "C" int hc_ntt_tile(const u64 *in, u64 *out, const u64 *wt,
                            const u64 *ep, long B, int logL, int tpb,
                            long in_es, long out_es, long ep_period, int nlev,
                            const long *cnt, const long *in_bs,
                            const long *out_bs, int nthreads) {
-  if (B <= 0 || logL < 1 || tpb < 1 || nlev < 1 || nlev > NTT_MAX_LEVELS ||
-      nthreads < 1)
+  NttTileArgs a;
+  if (nthreads < 1 ||
+      !ntt_args(&a, in, out, wt, ep, B, logL, tpb, in_es, out_es, ep_period,
+                nlev, cnt, in_bs, out_bs, NTT_R))
     return 1;
-  NttTileArgs a{in, out, wt, ep, B, logL, tpb, in_es, out_es, ep_period, nlev,
-                {}, {}, {}};
-  for (int k = 0; k < nlev; ++k) {
-    a.cnt[k] = cnt[k];
-    a.in_bs[k] = in_bs[k];
-    a.out_bs[k] = out_bs[k];
-  }
-  std::vector<u64> shared(ntt_shared_bytes(logL, tpb) / sizeof(u64));
-  u64 *sh = shared.data();
-  long *offs = (long *)(sh + ((size_t)tpb << logL) * 4);
+  const unsigned sp = ntt_plane_words(logL, tpb);
+  std::vector<u64> shared((ntt_shared_bytes(logL, tpb) + 7) / 8);
+  u32 *sh = (u32 *)shared.data();
+  long *offs = (long *)(sh + 8 * sp);
   const unsigned nt = (unsigned)nthreads;
   for (long first = 0; first < B; first += tpb) {
     const int nvalid = B - first < tpb ? (int)(B - first) : tpb;
     for (unsigned tid = 0; tid < nt; ++tid)
       ntt_offsets_thread(a, first, nvalid, offs, tid, nt);
     for (unsigned tid = 0; tid < nt; ++tid)
-      ntt_load_thread(a, nvalid, sh, offs, tid, nt);
-    for (int s = 0; s < logL; ++s)
+      ntt_load_thread(a, nvalid, sh, sp, offs, tid, nt);
+    for (int s0 = 0, q = ntt_first_stages(logL, NTT_R); s0 < logL;
+         s0 += q, q = NTT_R)
       for (unsigned tid = 0; tid < nt; ++tid)
-        ntt_stage_thread(a, nvalid, sh, s, tid, nt);
+        ntt_pass_thread<NTT_R>(a, nvalid, sh, sp, s0, q, tid, nt);
     for (unsigned tid = 0; tid < nt; ++tid)
-      ntt_store_thread(a, nvalid, sh, offs, tid, nt);
+      ntt_store_thread(a, nvalid, sh, sp, offs, tid, nt);
   }
   return 0;
 }
+
+// Where slot x of a block lies in each of its limb planes (`ntt_phys`).
+extern "C" unsigned hc_ntt_phys(unsigned x) { return ntt_phys(x); }
 
 // The 32-bit carry-chain arithmetic of `fr32.cuh` (K4's): n fully reduced
 // Montgomery products, and B lazy row sums of `nterms` <= 17 products each
@@ -150,6 +138,25 @@ struct PcLanes {
       for (int w = 0; w < K; ++w) o[i][w] = v[i ^ d][w];
   }
 };
+
+// K3 `fr_fold` (`fold.cuh`): the arguments of its entry point without the
+// stream; block after block, the scale step over the block's threads, then
+// each warp's fold step over its 32 lanes (`PcLanes`: the shuffle tree reads
+// the other lanes' slots).
+extern "C" int hc_fold(const u32 *f, const u32 *zpow, u32 *out, long nout,
+                       int m) {
+  if (nout <= 0 || m < 1 || m > FOLD_MAX_M) return 1;
+  std::vector<u32> zs((size_t)m * 8);
+  const long blocks = fold_blocks(nout, m);
+  for (long blk = 0; blk < blocks; ++blk) {
+    for (int tid = 0; tid < FOLD_THREADS; ++tid)
+      fold_scale(zpow, m, zs.data(), tid, FOLD_THREADS);
+    for (int w = 0; w < FOLD_THREADS / 32; ++w)
+      fold_warp(f, zs.data(), out, nout, m, fold_first(blk, w, m),
+                PcLanes{});
+  }
+  return 0;
+}
 
 template <int T>
 static void absorb_chain_replay(const u32 *state_in, const u32 *cols,

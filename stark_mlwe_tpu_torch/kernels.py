@@ -23,7 +23,7 @@ import time
 from . import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_HEADERS = ("fr.cuh", "poseidon.cuh", "ntt.cuh", "fr32.cuh",
+_HEADERS = ("fr32.cuh", "fold.cuh", "ntt.cuh", "poseidon.cuh",
             "poseidon_chain.cuh", "poseidon_group.cuh", "batch_inv.cuh")
 
 SOURCES = {

@@ -8,8 +8,9 @@ tensors (or `[B, n, 8]`: B transforms down axis -2); n is a power of two.
 
 Every transform on a CUDA tensor runs in K6 `fr_ntt_tiles`
 (csrc/fr_ntt.cu), which replaces the Pallas kernel `_ntt_tiles` of the JAX
-package: B transforms of one length L <= TILE_MAX, all butterfly stages in
-shared memory, then an optional product with an epilogue table.  The kernel
+package: B transforms of one length L <= TILE_MAX, all butterfly stages on
+chip (a few stages in registers between two shared-memory exchanges), then
+an optional product with an epilogue table.  The kernel
 takes `[..., L, 8]` VIEWS: it reads every transform where it lies (any
 stride between its elements, any strides over the batch dimensions),
 bit-reverses in the index of its load and writes through the strides of
@@ -58,7 +59,9 @@ from .fr import N
 # up to TILE_CAP (128 KB, one block per SM).
 TILE_MAX = 2048
 TILE_CAP = 4096
-# Elements a block holds when the transforms are short: 1024/L of them.
+# Elements a block holds when the transforms are short: 1024/L of them.  At
+# the 2^22 transform's two launches (L = 2,048, one transform a block) two
+# transforms a block were no faster (scripts/ntt_tile_sweep.py).
 _BLOCK_ELEMS = 1024
 _MAX_LEVELS = 8         # NTT_MAX_LEVELS of csrc/ntt.cuh
 

@@ -3,7 +3,8 @@
 Same inputs (numpy seed) through `stark_mlwe_tpu.ops.fr` and its
 counterpart; tolerance: exact (integer field arithmetic).  On the CPU the
 port's wrappers take the kernels' plain versions; the kernels' own C
-arithmetic (csrc/fr.cuh) is held against Python ints through a g++ build.
+arithmetic (csrc/fr32.cuh, and K3's csrc/fold.cuh) is held against Python
+ints through a g++ build.
 """
 
 import numpy as np
@@ -151,7 +152,8 @@ def test_wrappers_reject_wrong_inputs():
     (1, lambda x, y: (x + y) % P),
     (2, lambda x, y: (x - y) % P)])
 def test_kernel_source_arithmetic_on_host(op, ref):
-    """csrc/fr.cuh as the CUDA kernels include it, compiled with g++."""
+    """K2's element step (`fr32_binop` of csrc/fr32.cuh) as the CUDA kernel
+    includes it, compiled with g++."""
     lib = host_check_lib()
     xs = A + [x for x in EDGE for _ in EDGE]
     ys = B + [y for _ in EDGE for y in EDGE]

@@ -62,10 +62,10 @@ _HC = None
 
 
 def host_check_lib():
-    """The kernels' arithmetic (csrc/fr.cuh, csrc/poseidon.cuh,
-    csrc/ntt.cuh, csrc/fr32.cuh, csrc/poseidon_chain.cuh,
-    csrc/poseidon_group.cuh, csrc/batch_inv.cuh) compiled for the host with
-    g++ from csrc/host_check.cpp."""
+    """The kernels' arithmetic (csrc/fr32.cuh, csrc/fold.cuh, csrc/ntt.cuh,
+    csrc/poseidon.cuh, csrc/poseidon_chain.cuh, csrc/poseidon_group.cuh,
+    csrc/batch_inv.cuh) compiled for the host with g++ from
+    csrc/host_check.cpp."""
     global _HC
     if _HC is None:
         import stark_mlwe_tpu_torch
@@ -81,6 +81,7 @@ def host_check_lib():
                                        ctypes.c_int]
         lib.hc_fold.argtypes = [u64p, u64p, u64p, ctypes.c_long,
                                 ctypes.c_int]
+        lib.hc_fold.restype = ctypes.c_int
         lib.hc_permute.argtypes = ([u64p, ctypes.c_long]
                                    + [ctypes.c_int] * 3 + [u64p] * 6)
         lib.hc_permute.restype = ctypes.c_int
@@ -90,6 +91,8 @@ def host_check_lib():
                                      ctypes.c_int] + [ctypes.c_long] * 3
             + [ctypes.c_int, longp, longp, longp, ctypes.c_int])
         lib.hc_ntt_tile.restype = ctypes.c_int
+        lib.hc_ntt_phys.argtypes = [ctypes.c_uint]
+        lib.hc_ntt_phys.restype = ctypes.c_uint
         vp, c_int, c_long = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         lib.hc_fr32_mont_mul.argtypes = [vp, vp, vp, c_long]
         lib.hc_fr32_mont_mul.restype = None
