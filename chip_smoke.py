@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels from `stark_mlwe_tpu_torch/csrc/` (nvcc, sm_90a) and
-the host engine (g++) into `build/`, then runs five phases, one JSON line
-each, and exits non-zero as soon as one fails:
+the host engine (g++) into `build/`, then runs six phases, one JSON line
+each (nizk_path one a proof and one for the profile), and exits non-zero as
+soon as one fails:
 
   device     the card (`nvidia-smi` name and power limit), versions, build
   kernels    every kernel against its plain PyTorch version on the card,
@@ -78,6 +79,23 @@ each, and exits non-zero as soon as one fails:
              tests/data/torch_golden.json), the O(n^2) sum at n = 256 in
              Python ints, `Poly.mul` against the schoolbook product; host
              clock times of one warmed call each
+  nizk_path  the sum-check NIZKs (`channel.prove_plain` / `prove_mf`) at
+             benchmarkdata_nizk.csv's settings (plain: witness seed 42,
+             ds_tag 0xA11CE; MF: seed 43, ds_tag 0xB0B, 3 queries a round)
+             at k = 12, 14, 16, counts set to 0 before one prove and read
+             after it: `size_bytes()` equal to the CSV's `proof_bytes`, the
+             sha256 of `serde.serialize_nizk_proof` equal to the JAX
+             package's (`nizk_entries` of tests/data/torch_golden.json),
+             the port's and the copied spec verifier accept, two tampered
+             copies refused (a byte of final_eval and of a c0; of a
+             next_root and of a sibling), and the device chain alone, run
+             under `torch.cuda.set_sync_debug_mode("error")`, gives the
+             proof's roots and coefficients.  Per proof: prove seconds and
+             verify ms (medians of 5, samples printed), phases, launches,
+             the MF read-back branch.  At k = 16 K1's device time by layout
+             and batch (CUDA events around each launch) and a
+             `torch.profiler` trace of one prove: device time by kernel and
+             the idle share
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version, its time, the plain version's
@@ -100,6 +118,8 @@ the script itself and prints no `ok` line.
 from __future__ import annotations
 
 import argparse
+import copy
+import csv
 import ctypes
 import hashlib
 import json
@@ -137,6 +157,11 @@ WIDE_PRESETS = [("hi128_64_8", [128, 64, 8]), ("uni32x3", [32, 32, 32])]
 NTT_PATH = "ntt 2^22 + lde 2^20x4"
 NTT_GOLDEN = ["ntt_2e16", "intt_2e16", "lde_2e14_b4", "lde_2e12_b2_coset5",
               "four_step_256x256"]
+# The sum-check NIZKs as `bench.run_plain_nizk` / `run_mf_nizk` of the JAX
+# package run them (benchmarkdata_nizk.csv): witness seed, ds_tag, queries.
+NIZK = {"plain": (42, 0xA11CE, 0), "mf": (43, 0xB0B, 3)}
+NIZK_KS = (12, 14, 16)
+NIZK_REPS = 5
 CHAIN_REPLACES = ("stark_mlwe_tpu/ops/poseidon_chain.py:429",
                   "stark_mlwe_tpu/ops/poseidon_pallas.py:584")
 
@@ -228,6 +253,261 @@ def bound(nbytes: int, macs: int):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = macs * OPS_PER_MAC64 / INT_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nizk_path(dev, rehearse: bool, card: str, by_path: dict) -> None:
+    """The sum-check NIZKs at benchmarkdata_nizk.csv's settings (see the
+    module doc); adds each proof's launch counts to `by_path`."""
+    import torch
+
+    from stark_mlwe_tpu_torch import channel as tch
+    from stark_mlwe_tpu_torch import kernels
+    from stark_mlwe_tpu_torch import merkle as dmk
+    from stark_mlwe_tpu_torch.mle import DeviceMLE
+    from stark_mlwe_tpu_torch.ops import fr
+    from stark_mlwe_tpu_torch.ops import poseidon as dpos
+    from stark_mlwe_tpu_torch.serde import serialize_nizk_proof
+    from stark_mlwe_tpu_torch.spec import channel as spec_channel
+    from stark_mlwe_tpu_torch.spec.field import fr_to_bytes
+    from stark_mlwe_tpu_torch.spec.rng import StdRng
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    csv_bytes = {}
+    with open(os.path.join(ROOT, "benchmarkdata_nizk.csv")) as fh:
+        for row in csv.DictReader(fh):
+            key = (row["variant"], int(row["k"]))
+            if csv_bytes.setdefault(key, int(row["proof_bytes"])) != int(
+                    row["proof_bytes"]):
+                raise AssertionError(f"benchmarkdata_nizk.csv: two sizes "
+                                     f"for {key}")
+    with open(os.path.join(ROOT, "tests", "data", "torch_golden.json")) as fh:
+        nizk_golden = {e["name"]: e for e in json.load(fh)["nizk_entries"]}
+    k1_by_batch = {}
+    permute_k1 = dpos.permute_k1
+
+    def timed_permute_k1(state, dp, layout):
+        """K1 with CUDA events around the launch, summed by layout, width
+        and batch (read after a synchronise)."""
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = permute_k1(state, dp, layout)
+        e1.record()
+        key = f"{layout} t={dp.t} B={int(state.shape[0])}"
+        k1_by_batch.setdefault(key, []).append((e0, e1))
+        return out
+
+    class no_host_sync:
+        """CUDA's sync debug mode at "error" (any operation that makes the
+        host wait for the card raises); nothing on the CPU."""
+
+        def __enter__(self):
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+
+        def __exit__(self, *exc):
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+            return False
+
+    def flip_byte(b: bytes) -> bytes:
+        return b[:3] + bytes([b[3] ^ 1]) + b[4:]
+
+    def chain_outputs(variant, vk, values):
+        """The device chain alone (tree + rounds), run with host syncs
+        forbidden; returns (roots, coefficient pairs, final) as ints."""
+        tree_cfg = tch.DeviceMerkleCommitment(vk.tree_label)._tree_cfg()
+        with no_host_sync():
+            if variant == "plain":
+                root = dmk.build_tree(values, tree_cfg).levels_dev[-1][0]
+                _, cps, final = tch._plain_chain(values, root, vk.k)
+                roots, cps = [root], [cps[i] for i in range(vk.k)]
+            else:
+                layers, trees, pairs = tch._mf_chain_device(
+                    DeviceMLE(values), tree_cfg, vk.k)
+                roots = [t.levels_dev[-1][0] for t in trees]
+                cps = [torch.stack(p) for p in pairs]
+                final = layers[-1].values_dev[0]
+        sync()
+        out = fr.unpack_ints(fr.from_mont(torch.cat(
+            [torch.stack(roots), torch.cat(cps), final[None]])))
+        n_roots = len(roots)
+        return (out[:n_roots], list(zip(out[n_roots:-1:2],
+                                        out[n_roots + 1:-1:2])), out[-1])
+
+    nizk_ks = (4,) if rehearse else NIZK_KS
+    reps = 1 if rehearse else NIZK_REPS
+    nizk_lines = []
+    for variant, (seed, ds_tag, queries) in NIZK.items():
+        prove_fn, verify_fn, spec_verify = (
+            (tch.prove_plain, tch.verify_plain, spec_channel.verify_plain)
+            if variant == "plain" else
+            (tch.prove_mf, tch.verify_mf, spec_channel.verify_mf))
+        for kk in nizk_ks:
+            t0 = time.perf_counter()
+            w = StdRng.seed_from_u64(seed).ark_fr_rand_batch(1 << kk)
+            vk = (spec_channel.build_vk_plain(kk, ds_tag) if variant == "plain"
+                  else spec_channel.build_vk_mf(kk, ds_tag, queries))
+            path = f"nizk {variant} k={kk}"
+            prove_fn(vk, w, device=dev)            # warm-up: constants
+            sync()
+            samples, phases = [], []
+            for rep in range(reps):
+                kernels.reset_launches()
+                sync()
+                t1 = time.perf_counter()
+                proof = prove_fn(vk, w, device=dev)
+                sync()
+                samples.append(time.perf_counter() - t1)
+                phases.append(dict(tch.phase_seconds))
+                if rep == 0:
+                    counts = dict(kernels.launches)
+            by_path[path] = counts
+            buf = serialize_nizk_proof(proof)
+            vsamples = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                ok = verify_fn(vk, proof, device=dev)
+                vsamples.append((time.perf_counter() - t1) * 1e3)
+                if not ok:
+                    raise AssertionError(f"{path}: verify refused the proof")
+            t1 = time.perf_counter()
+            if not spec_verify(vk, proof):
+                raise AssertionError(f"{path}: the spec verifier refused "
+                                     f"the proof")
+            spec_s = time.perf_counter() - t1
+            want_bytes = csv_bytes.get((variant, kk))
+            if want_bytes is not None and proof.size_bytes() != want_bytes:
+                raise AssertionError(f"{path}: {proof.size_bytes()} bytes, "
+                                     f"benchmarkdata_nizk.csv says "
+                                     f"{want_bytes}")
+            if not rehearse and want_bytes is None:
+                raise AssertionError(f"{path}: not in benchmarkdata_nizk.csv")
+            ent = nizk_golden.get(f"{variant}_k{kk}")
+            sha = hashlib.sha256(buf).hexdigest()
+            if ent is not None and (sha != ent["sha256"]
+                                    or proof.size_bytes() != ent["size_bytes"]):
+                raise AssertionError(f"{path}: sha256 {sha} differs from the "
+                                     f"JAX package's {ent['sha256']}")
+            if not rehearse and kk < 16 and ent is None:
+                raise AssertionError(f"{path}: no golden entry")
+            # tampered copies: bytes the verifier reads
+            if variant == "plain":
+                c0, c1 = proof.rounds[2]
+                bad = [spec_channel.ProofPlain(proof.root, proof.rounds,
+                                               flip_byte(proof.final_eval)),
+                       spec_channel.ProofPlain(
+                           proof.root, proof.rounds[:2] + [(flip_byte(c0), c1)]
+                           + proof.rounds[3:], proof.final_eval)]
+            else:
+                bad = [copy.deepcopy(proof), copy.deepcopy(proof)]
+                bad[0].rounds[1].next_root = flip_byte(
+                    bad[0].rounds[1].next_root)
+                lvl = next(lv for lv in bad[1].rounds[0].cur_proof.siblings
+                           if lv)
+                lvl[0] = flip_byte(lvl[0])
+            for b in bad:
+                if verify_fn(vk, b, device=dev):
+                    raise AssertionError(f"{path}: a tampered proof was "
+                                         f"accepted")
+            if spec_verify(vk, bad[0]):
+                raise AssertionError(f"{path}: the spec verifier accepted a "
+                                     f"tampered proof")
+            # the chain alone, with host syncs forbidden, gives the proof's
+            # roots and coefficients
+            values = DeviceMLE.from_ints(w, dev).values_dev
+            roots, cints, final = chain_outputs(variant, vk, values)
+            want_roots = ([proof.root] if variant == "plain" else
+                          [proof.initial_root] + [r.next_root
+                                                  for r in proof.rounds])
+            want_c = (proof.rounds if variant == "plain" else
+                      [(r.c0, r.c1) for r in proof.rounds])
+            if ([fr_to_bytes(x) for x in roots] != want_roots
+                    or [(fr_to_bytes(a), fr_to_bytes(b)) for a, b in cints]
+                    != list(want_c)
+                    or fr_to_bytes(final) != proof.final_eval):
+                raise AssertionError(f"{path}: the chain run without host "
+                                     f"syncs differs from the proof")
+            if not rehearse:
+                missing = [n for n in ("poseidon_permute_warp_t17", "fr_add",
+                                       "fr_sub", "fr_mont_mul")
+                           if counts[n] == 0]
+                if missing:
+                    raise AssertionError(f"{path} launched no {missing}")
+            branch = ("bundle" if variant == "plain" else
+                      "gather" if (1 << kk) >= tch.MF_GATHER_MIN_N
+                      else "download")
+            line = {"phase": "nizk_path", "path": path, "k": kk,
+                    "branch": branch, "proof_bytes": proof.size_bytes(),
+                    "csv_proof_bytes": want_bytes,
+                    "encoded_bytes": len(buf), "sha256": sha,
+                    "matches_jax": ent is not None, "verify": True,
+                    "spec_verify": True, "tamper_refused": True,
+                    "chain_without_host_sync": dev.type == "cuda",
+                    "prove_seconds": statistics.median(samples),
+                    "prove_seconds_samples": samples,
+                    "verify_ms": statistics.median(vsamples),
+                    "verify_ms_samples": vsamples,
+                    "spec_verify_seconds": spec_s,
+                    "phase_seconds": {n: statistics.median(
+                        p[n] for p in phases) for n in phases[0]},
+                    "launches": {n: c for n, c in counts.items() if c},
+                    "seconds": time.perf_counter() - t0, "card": card}
+            nizk_lines.append(line)
+            emit(line)
+
+    # k = 16 (k = 4 in the rehearsal): K1's device time by layout and batch
+    # (CUDA events around each launch of one prove), then one more prove
+    # under torch.profiler: device time by kernel, copies included, and the
+    # idle share of the traced wall.
+    profile = {}
+    if not rehearse:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        kk = nizk_ks[-1]
+        for variant, (seed, ds_tag, queries) in NIZK.items():
+            w = StdRng.seed_from_u64(seed).ark_fr_rand_batch(1 << kk)
+            vk = (spec_channel.build_vk_plain(kk, ds_tag) if variant == "plain"
+                  else spec_channel.build_vk_mf(kk, ds_tag, queries))
+            prove_fn = tch.prove_plain if variant == "plain" else tch.prove_mf
+            k1_by_batch.clear()
+            dpos.permute_k1 = timed_permute_k1
+            try:
+                prove_fn(vk, w, device=dev)
+                sync()
+            finally:
+                dpos.permute_k1 = permute_k1
+            k1 = {key: {"launches": len(ev), "device_ms": sum(
+                a.elapsed_time(b) for a, b in ev)}
+                for key, ev in sorted(k1_by_batch.items())}
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                prove_fn(vk, w, device=dev)
+                sync()
+                traced = time.perf_counter() - t1
+            by_name = {}
+            for ev in prof.key_averages():
+                self_us = getattr(ev, "self_device_time_total", None)
+                if self_us is None:
+                    self_us = getattr(ev, "self_cuda_time_total", 0.0)
+                if self_us > 0:
+                    by_name[ev.key] = {"calls": ev.count,
+                                       "device_ms": self_us / 1e3}
+            busy = sum(v["device_ms"] for v in by_name.values()) / 1e3
+            profile[variant] = {
+                "k": kk, "k1_device_ms_by_layout_and_batch": k1,
+                "traced_prove_seconds": traced, "device_busy_seconds": busy,
+                "device_idle_share": 1.0 - busy / traced,
+                "device_ms_by_kernel": dict(sorted(
+                    by_name.items(), key=lambda kv: -kv[1]["device_ms"]))}
+    emit({"phase": "nizk_path", "profile": profile,
+          "paths": len(nizk_lines), "gather_min_n": tch.MF_GATHER_MIN_N,
+          "seconds": time.perf_counter() - t_phase, "card": card})
 
 
 def main(argv=None) -> int:
@@ -1224,6 +1504,9 @@ def main(argv=None) -> int:
           "naive_n256": True, "poly_mul": True,
           "launches": {n: c for n, c in counts.items() if c},
           "seconds": time.perf_counter() - t_phase, "card": card})
+
+    # ---- phase 6: the sum-check NIZK path ------------------------------------
+    nizk_path(dev, rehearse, card, by_path)
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -10,6 +10,22 @@ An entry with `"witness": "device"` hands the four columns over as JAX
 device arrays, so the column digests come through `fs.tagged_hash_vecs`
 (the device branch of `build_f0`) instead of the host engine.
 
+`nizk_entries` are digests of the JAX package's sum-check NIZK proofs at
+the settings of `benchmarkdata_nizk.csv` (`bench.run_plain_nizk` /
+`run_mf_nizk`: witness `StdRng.seed_from_u64(seed)` drawn with
+`ark_fr_rand`, the VK's ds_tag and queries per round): the sha256 and
+length of the port's canonical encoding
+`stark_mlwe_tpu_torch.serde.serialize_nizk_proof`, beside
+`proof.size_bytes()`.  Up to k = 12 the proof comes from the JAX package's
+device prover (`channel.prove_plain` / `prove_mf`, `"prover": "device"`);
+its one-program compile on the CPU takes minutes and about 18 GB there
+(k = 12), and grows with k, so from k = 14 on it comes from the JAX
+package's pure-int spec prover (`spec.channel`, `"prover": "spec"`), to
+which the device prover is held byte for byte by the JAX package's tests
+(and its gather branch by tests/test_torch_nizk.py).  The JAX package's
+pure-int verifier (and, for device proofs, its device verifier) must
+accept each proof.
+
 `ntt_entries` are digests of the JAX package's NTT entry points
 (`ops.ntt.ntt`, `intt`, `lde`, `ntt_four_step`) on the inputs
 `fr.seeded_limbs(seed, n)` of the port, read as Montgomery form: the sha256
@@ -62,6 +78,15 @@ ENTRIES = [
      "unstructured": True, "witness": "device"},
 ]
 
+NIZK_ENTRIES = [
+    {"name": f"{variant}_k{k}", "variant": variant, "k": k,
+     "seed": 42 if variant == "plain" else 43,
+     "ds_tag": 0xA11CE if variant == "plain" else 0xB0B,
+     "queries_per_round": 0 if variant == "plain" else 3}
+    for k in (5, 12, 14, 16) for variant in ("plain", "mf")
+]
+NIZK_DEVICE_MAX_K = 12
+
 NTT_ENTRIES = [
     {"name": "ntt_2e16", "op": "ntt", "n": 1 << 16, "seed": 2201},
     {"name": "intt_2e16", "op": "intt", "n": 1 << 16, "seed": 2202},
@@ -97,6 +122,35 @@ def ntt_digest(ent) -> str:
     return hashlib.sha256(canon.tobytes()).hexdigest()
 
 
+def nizk_record(ent) -> dict:
+    """One NIZK entry through the JAX package on the CPU."""
+    from stark_mlwe_tpu import channel as jch
+    from stark_mlwe_tpu.spec import channel as jsch
+    from stark_mlwe_tpu.spec.rng import StdRng
+    from stark_mlwe_tpu_torch.serde import serialize_nizk_proof
+
+    witness = StdRng.seed_from_u64(ent["seed"]).ark_fr_rand_batch(
+        1 << ent["k"])
+    on_device = ent["k"] <= NIZK_DEVICE_MAX_K
+    if ent["variant"] == "plain":
+        vk = jsch.build_vk_plain(ent["k"], ds_tag=ent["ds_tag"])
+        proof = (jch if on_device else jsch).prove_plain(vk, witness)
+        assert jsch.verify_plain(vk, proof)
+        assert not on_device or jch.verify_plain(vk, proof)
+    else:
+        vk = jsch.build_vk_mf(ent["k"], ds_tag=ent["ds_tag"],
+                              queries_per_round=ent["queries_per_round"])
+        proof = (jch if on_device else jsch).prove_mf(vk, witness)
+        assert jsch.verify_mf(vk, proof)
+        assert not on_device or jch.verify_mf(vk, proof)
+    buf = serialize_nizk_proof(proof)
+    rec = dict(ent, prover="device" if on_device else "spec")
+    rec["size_bytes"] = proof.size_bytes()
+    rec["encoded_bytes"] = len(buf)
+    rec["sha256"] = hashlib.sha256(buf).hexdigest()
+    return rec
+
+
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
@@ -110,10 +164,17 @@ def main() -> None:
         old = json.load(f)
     have = {e["name"]: e for e in old["entries"]}
     have_ntt = {e["name"]: e for e in old.get("ntt_entries", [])}
+    have_nizk = {e["name"]: e for e in old.get("nizk_entries", [])}
     out = {"source": "stark_mlwe_tpu.stark.prove on the CPU backend",
            "entries": [],
            "ntt_source": "stark_mlwe_tpu.ops.ntt on the CPU backend",
-           "ntt_entries": []}
+           "ntt_entries": [],
+           "nizk_source": "stark_mlwe_tpu.channel.prove_plain / prove_mf "
+                          "on the CPU backend (prover: device) or "
+                          "stark_mlwe_tpu.spec.channel (prover: spec), "
+                          "encoded by stark_mlwe_tpu_torch.serde."
+                          "serialize_nizk_proof",
+           "nizk_entries": []}
     for ent in ENTRIES:
         if ent["name"] in have:
             out["entries"].append(have[ent["name"]])
@@ -146,6 +207,15 @@ def main() -> None:
         rec["sha256"] = ntt_digest(ent)
         out["ntt_entries"].append(rec)
         print(rec["name"], rec["sha256"],
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for ent in NIZK_ENTRIES:
+        if ent["name"] in have_nizk:
+            out["nizk_entries"].append(have_nizk[ent["name"]])
+            continue
+        t0 = time.perf_counter()
+        rec = nizk_record(ent)
+        out["nizk_entries"].append(rec)
+        print(rec["name"], rec["size_bytes"], rec["sha256"],
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

@@ -7,7 +7,8 @@ form of crates/merkle/src/lib.rs of the Rust reference), bit-exact against
   - tree build is level-by-level batched sponge hashing on the device:
     each level is one (or two, with a partial tail group) reshape ->
     Poseidon call over all parents, incl. the DsLabel 4-field preamble,
-  - pair-leaf trees hash (f, cp) with the LEAF_LEVEL_DS sentinel,
+  - pair-leaf trees hash (f, cp) with the LEAF_LEVEL_DS sentinel, legacy
+    t=17 trees chunk by RATE with the tag in the capacity lane,
   - union-of-paths multiproofs are planned host-side from indices alone and
     assembled from gathered device nodes, producing spec `MerkleProof`s,
   - verifiers mirror the spec frontier reconstruction but batch each
@@ -27,12 +28,16 @@ from .. import native
 from ..device import resolve
 from ..ops import fr
 from ..ops import poseidon as dpos
-from ..spec.merkle import LEAF_LEVEL_DS, MerkleChannelCfg, MerkleProof
+from ..spec.field import P
+from ..spec.merkle import (LEAF_LEVEL_DS, MerkleChannelCfg, MerkleProof,
+                           default_params)
 from ..spec.poseidon import PoseidonParams, width_for_arity
 
 __all__ = ["DeviceMerkleTree", "build_levels_from", "build_tree",
-           "build_tree_pairs", "hash_pair_leaves", "ds_rows_mont",
-           "ds_rows_device", "verify_many_ds", "verify_pairs_ds",
+           "build_tree_pairs", "hash_pair_leaves", "build_tree_legacy",
+           "build_tree_pairs_legacy", "ds_rows_mont", "ds_rows_device",
+           "verify_many_ds", "verify_pairs_ds", "verify_many_legacy",
+           "verify_pairs_legacy", "MerkleProver", "LegacyMerkleProver",
            "MerkleChannelCfg", "MerkleProof"]
 
 
@@ -61,8 +66,8 @@ def ds_rows_device(arity: int, level: int, g: int, tree_label: int, device,
     computed ON the device: the only non-constant column is the position,
     built from an arange and converted with `fr.to_mont`, so a large level
     costs no host build and no upload."""
-    consts = fr.to_device(fr.pack_ints([arity, level, tree_label],
-                                       mont=True), device)
+    consts = fr.upload(fr.pack_ints([arity, level, tree_label], mont=True),
+                       device)
     i = torch.arange(start, start + g, dtype=torch.int64, device=device)
     pos = torch.zeros((g, fr.N), dtype=torch.int64, device=device)
     pos[:, 0] = i & 0xFFFFFFFF
@@ -80,6 +85,10 @@ def _hash_level_ds(ds_rows, chunks, dp):
     return dpos.sponge_hash_ds_dynamic(ds_rows, chunks, dp)
 
 
+def _hash_level_legacy(chunks, ds_tag_mont, dp):
+    return dpos.sponge_hash_ds_legacy(chunks, ds_tag_mont, dp)
+
+
 # ---------------------------------------------------------------------------
 # Tree object (duck-types the spec MerkleTree for open_many/root).
 # ---------------------------------------------------------------------------
@@ -87,10 +96,12 @@ def _hash_level_ds(ds_rows, chunks, dp):
 class DeviceMerkleTree:
     """Per-level device digest tensors ([n_l, 8] Montgomery limbs)."""
 
-    def __init__(self, levels_dev, arity, cfg=None):
+    def __init__(self, levels_dev, arity, cfg=None, ds_tag=0, params=None):
         self.levels_dev = levels_dev
         self.arity = arity
         self.cfg = cfg
+        self.ds_tag = ds_tag
+        self.params = params
         self._levels_host = [None] * len(levels_dev)
 
     def level_ints(self, level: int) -> list:
@@ -219,6 +230,45 @@ def build_tree_pairs(f_mont, cp_mont, cfg: MerkleChannelCfg):
     return build_tree(hash_pair_leaves(f_mont, cp_mont, cfg), cfg)
 
 
+def _tag_mont(ds_tag: int, device) -> torch.Tensor:
+    return fr.upload(fr.pack_int(ds_tag, mont=True), device)
+
+
+def build_tree_legacy(leaves_mont, ds_tag: int,
+                      params: PoseidonParams) -> DeviceMerkleTree:
+    """Legacy t=17 tree, chunked by RATE, tag in capacity
+    (merkle/src/lib.rs:196-223)."""
+    dp = dpos.device_params(params)
+    rate = params.rate
+    tag_m = _tag_mont(ds_tag, leaves_mont.device)
+    levels = [leaves_mont]
+    cur = leaves_mont
+    while cur.shape[0] > 1:
+        n = int(cur.shape[0])
+        full = n // rate
+        outs = []
+        if full:
+            chunks = cur[:full * rate].reshape(full, rate, fr.N)
+            outs.append(_hash_level_legacy(chunks, tag_m, dp))
+        if n % rate:
+            chunk = cur[full * rate:].reshape(1, n - full * rate, fr.N)
+            outs.append(_hash_level_legacy(chunk, tag_m, dp))
+        cur = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        levels.append(cur)
+    return DeviceMerkleTree(levels, rate, ds_tag=ds_tag, params=params)
+
+
+def build_tree_pairs_legacy(f_mont, cp_mont, ds_tag: int,
+                            params: PoseidonParams) -> DeviceMerkleTree:
+    """Legacy pair-leaf tree (merkle/src/lib.rs:448-483): leaf i is the
+    legacy hash of (f[i], cp[i])."""
+    dp = dpos.device_params(params)
+    tag_m = _tag_mont(ds_tag, f_mont.device)
+    leaves = _hash_level_legacy(torch.stack([f_mont, cp_mont], dim=1),
+                                tag_m, dp)
+    return build_tree_legacy(leaves, ds_tag, params)
+
+
 # ---------------------------------------------------------------------------
 # Fast verifiers: spec frontier reconstruction with batched hashing.
 # ---------------------------------------------------------------------------
@@ -246,6 +296,36 @@ def _hash_groups_ds(entries, arity, level, tree_label, params, device=None):
         arity, level, np.array([e[0] for e in entries], np.uint64),
         tree_label), dev)
     return fr.unpack_ints(_hash_level_ds(ds, inputs, dp), mont=True)
+
+
+def _legacy_rows_native(rows, ds_tag: int, params: PoseidonParams) -> list:
+    """Legacy hashes of equal-length rows in the host engine: the tag in the
+    capacity element, each RATE chunk added into the rate, one permutation
+    per chunk, digest = state[0] (as `ops.poseidon.sponge_hash_ds_legacy`)."""
+    t, rate = params.t, params.rate
+    states = [[0] * (t - 1) + [ds_tag % P] for _ in rows]
+    for off in range(0, len(rows[0]), rate):
+        for st, row in zip(states, rows):
+            for j, v in enumerate(row[off:off + rate]):
+                st[j] = (st[j] + v) % P
+        states = native.permute_ints_batch(states, params)
+    return [st[0] for st in states]
+
+
+def _hash_groups_legacy(entries, ds_tag, params, device=None):
+    """entries: list[(parent_idx, children_ints)] with equal child counts;
+    returns the canonical legacy digests.  Small batches run in the host
+    engine; large ones batch on `device`."""
+    rows = [list(children) for _, children in entries]
+    if len(rows) <= _NATIVE_CUTOFF:
+        return _legacy_rows_native(rows, ds_tag, params)
+    dev = resolve(device)
+    flat = [v for row in rows for v in row]
+    inputs = fr.to_device(fr.pack_ints(flat, mont=True), dev).reshape(
+        len(rows), len(rows[0]), fr.N)
+    out = _hash_level_legacy(inputs, _tag_mont(ds_tag, dev),
+                             dpos.device_params(params))
+    return fr.unpack_ints(out, mont=True)
 
 
 def _reconstruct_fast(root, indices, values, proof: MerkleProof,
@@ -341,3 +421,98 @@ def verify_pairs_ds(root, indices, pairs, proof, tree_label: int,
                              device)
     return verify_many_ds(root, req, leaves, proof, tree_label, params,
                           device)
+
+
+def verify_many_legacy(root, indices, values, proof, ds_tag: int,
+                       params: PoseidonParams, device=None) -> bool:
+    """Batched legacy verify_many (merkle/src/lib.rs:487-584)."""
+    return _reconstruct_fast(
+        root, indices, values, proof,
+        lambda level, groups: _hash_groups_legacy(groups, ds_tag, params,
+                                                  device))
+
+
+def verify_pairs_legacy(root, indices, pairs, proof, ds_tag: int,
+                        params: PoseidonParams, device=None) -> bool:
+    """Batched legacy verify_pairs (merkle/src/lib.rs:704-720)."""
+    if len(indices) != len(pairs) or not indices:
+        return False
+    leaves = _hash_groups_legacy([(0, [f, cp]) for f, cp in pairs], ds_tag,
+                                 params, device)
+    return verify_many_legacy(root, indices, leaves, proof, ds_tag, params,
+                              device)
+
+
+# ---------------------------------------------------------------------------
+# Facades mirroring merkle/src/lib.rs:777-905.
+# ---------------------------------------------------------------------------
+
+class _Facade:
+    def __init__(self, device=None):
+        self.device = device
+
+    def _mont(self, xs):
+        """Host int lists go to the facade's device; tensors stay where
+        they are."""
+        if isinstance(xs, (list, tuple)):
+            return fr.to_device(fr.pack_ints(list(xs), mont=True),
+                                resolve(self.device))
+        return xs
+
+    def open_pairs(self, tree, f_vals, cp_vals, indices):
+        uniq = sorted(set(indices))
+        pairs = [(f_vals[i], cp_vals[i]) for i in uniq]
+        return pairs, tree.open_many(uniq)
+
+
+class MerkleProver(_Facade):
+    """Device-backed DS-aware facade (merkle/src/lib.rs:777-855).
+
+    commit_* take host int lists (sent to `device`) or Montgomery limb
+    tensors."""
+
+    def __init__(self, cfg: MerkleChannelCfg, device=None):
+        super().__init__(device)
+        self.cfg = cfg
+
+    def commit_single(self, leaves):
+        tree = build_tree(self._mont(leaves), self.cfg)
+        return tree.root(), tree
+
+    def open_single(self, tree, indices):
+        return tree.open_many(indices)
+
+    def verify_single(self, root, indices, leaves, proof) -> bool:
+        return verify_many_ds(root, indices, leaves, proof,
+                              self.cfg.tree_label, self.cfg.params,
+                              self.device)
+
+    def commit_pairs(self, f_vals, cp_vals):
+        tree = build_tree_pairs(self._mont(f_vals), self._mont(cp_vals),
+                                self.cfg)
+        return tree.root(), tree
+
+    def verify_pairs(self, root, indices, pairs, proof) -> bool:
+        return verify_pairs_ds(root, indices, pairs, proof,
+                               self.cfg.tree_label, self.cfg.params,
+                               self.device)
+
+
+class LegacyMerkleProver(_Facade):
+    """Device-backed legacy facade (merkle/src/lib.rs:857-905)."""
+
+    def __init__(self, ds_tag: int, params: PoseidonParams | None = None,
+                 device=None):
+        super().__init__(device)
+        self.ds_tag = ds_tag
+        self.params = params if params is not None else default_params()
+
+    def commit_pairs(self, f_vals, cp_vals):
+        tree = build_tree_pairs_legacy(self._mont(f_vals),
+                                       self._mont(cp_vals), self.ds_tag,
+                                       self.params)
+        return tree.root(), tree
+
+    def verify_pairs(self, root, indices, pairs, proof) -> bool:
+        return verify_pairs_legacy(root, indices, pairs, proof, self.ds_tag,
+                                   self.params, self.device)

@@ -118,6 +118,17 @@ def to_device(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, dtype="<i4")).to(device)
 
 
+def upload(arr, device) -> torch.Tensor:
+    """Host limbs -> int32 tensor on `device` without a host sync: to a
+    CUDA device the bytes go through pinned memory with `non_blocking=True`
+    (a copy from pageable memory makes the host wait for the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype="<i4"))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 _CONSTS: dict = {}
 
 
@@ -125,7 +136,7 @@ def const(value: int, device, mont: bool = False) -> torch.Tensor:
     """A cached [8] limb tensor of one field constant on `device`."""
     key = (value, mont, str(device))
     if key not in _CONSTS:
-        _CONSTS[key] = to_device(pack_int(value, mont=mont), device)
+        _CONSTS[key] = upload(pack_int(value, mont=mont), device)
     return _CONSTS[key]
 
 

@@ -25,6 +25,10 @@ PORT_MODULES = [
     "stark_mlwe_tpu_torch.spec.transcript",
     "stark_mlwe_tpu_torch.spec.merkle",
     "stark_mlwe_tpu_torch.spec.deep_ali", "stark_mlwe_tpu_torch.spec.fri",
+    "stark_mlwe_tpu_torch.spec.mle", "stark_mlwe_tpu_torch.spec.channel",
+    "stark_mlwe_tpu_torch.serde", "stark_mlwe_tpu_torch.mle",
+    "stark_mlwe_tpu_torch.transcript_dev", "stark_mlwe_tpu_torch.channel",
+    "stark_mlwe_tpu_torch.commitment",
     "chip_smoke",
 ]
 
