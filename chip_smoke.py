@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels from `stark_mlwe_tpu_torch/csrc/` (nvcc, sm_90a) and
-the host engine (g++) into `build/`, then runs six phases, one JSON line
-each (nizk_path one a proof and one for the profile), and exits non-zero as
-soon as one fails:
+the host engine (g++) into `build/`, then runs seven phases, one JSON line
+each (nizk_path and bench_path one a proof and one to close), and exits
+non-zero as soon as one fails:
 
-  device     the card (`nvidia-smi` name and power limit), versions, build
+  device     the card (`nvidia-smi` name and power limit), versions, build,
+             the host CPU (model, cores, whether it has AVX-512 IFMA)
   kernels    every kernel against its plain PyTorch version on the card,
              exact equality, at the shapes the prover gives it and on
              worst-case inputs; times by CUDA events.  K1's two layouts (a
@@ -96,6 +97,21 @@ soon as one fails:
              and batch (CUDA events around each launch) and a
              `torch.profiler` trace of one prove: device time by kernel and
              the idle share
+  bench_path the bench harness (`stark_mlwe_tpu_torch.bench`) as the
+             drivers run it, on `gen_witness(k, witness_seed_for(label,
+             k))`: the paper schedule at k = 11-16 and the twelve other
+             presets at k=16, counts set to 0 before each of the two paths
+             and read after; each `proof_bytes` equal to benchmarkdata.csv's
+             row, each proof accepted by the port's verifier, and those of
+             `BENCH_SPEC_VERIFY` by the spec verifier too;
+             the paper k=16 proof's sha256 equal to the JAX spec prover's
+             (`bench_paper_k16` of tests/data/torch_golden.json), its 5
+             prove and verify samples, medians, its wire length apart from
+             `proof_bytes`; `run_plain_nizk(12)` / `run_mf_nizk(12)` sizes
+             equal to benchmarkdata_nizk.csv's; the peak allocated device
+             memory, `utils.profiling.phase_report()`, and a
+             `utils.profiling.trace` of one paper k=16 prove in `--log-dir`
+             (its idle share beside it)
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version, its time, the plain version's
@@ -133,21 +149,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-# The data sheet gives no rate for 32-bit integer multiply-adds outside the
-# tensor cores; the float32 rate of the same pipes is taken as the ceiling
-# (67e12 operations/s, one multiply-add = 2 operations).  The integer pipes
-# are no faster than that, so `bound_ms` stays a lower bound.
-INT_OPS_PER_S = 67e12
-OPS_PER_MAC64 = 8              # 64x64->128 multiply-add = 4 32-bit ones
-
-# The work of the field primitives, counted in 64x64-bit multiply-adds
-# whatever limbs the kernels use (each is four 32-bit ones on `fr32.cuh`).
-MAC_MONT_MUL = 36              # 16 a*b + 16 m*P + 4 m
-MAC_ACC_MUL = 16
-MAC_REDC320 = 25
-MAC_POW5 = 3 * MAC_MONT_MUL
-
 SEED = 1234
 HOST_REPS = 5                  # host-engine runs of the full chain
 GOLDEN_ENTRIES = ["paper_k12", "paper_k11_unstructured", "wide32_k6",
@@ -162,6 +163,15 @@ NTT_GOLDEN = ["ntt_2e16", "intt_2e16", "lde_2e14_b4", "lde_2e12_b2_coset5",
 NIZK = {"plain": (42, 0xA11CE, 0), "mf": (43, 0xB0B, 3)}
 NIZK_KS = (12, 14, 16)
 NIZK_REPS = 5
+# The bench harness's path (`bench_path`): paper rows and the preset rows'
+# k of benchmarkdata.csv, the samples of the paper k=16 row, its golden.
+BENCH_PAPER_KS = (11, 12, 13, 14, 15, 16)
+BENCH_K = 16
+BENCH_REPS = 5
+BENCH_GOLDEN = "bench_paper_k16"
+# Presets whose bench proofs the pure-int spec verifier also checks: at
+# widths 65 and 129 it takes 28-42 s a proof on the GPU machine's host.
+BENCH_SPEC_VERIFY = ("paper", "mod16", "uni32x3")
 CHAIN_REPLACES = ("stark_mlwe_tpu/ops/poseidon_chain.py:429",
                   "stark_mlwe_tpu/ops/poseidon_pallas.py:584")
 
@@ -172,23 +182,6 @@ LINES = []                     # every JSON line, for chip_smoke.jsonl
 def emit(obj) -> None:
     LINES.append(json.dumps(obj))
     print(LINES[-1], flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    return out.splitlines()[0]
-
-
-def permute_macs(t: int, rf: int, rp: int) -> int:
-    """64-bit multiplies of one permutation as the kernel computes it
-    (dense full rounds, sparse partial rounds, one dense matrix after)."""
-    dense = t * t * MAC_ACC_MUL + t * MAC_REDC320
-    full = rf * (t * MAC_POW5 + dense)
-    part = rp * MAC_POW5 + (rp - 1) * (
-        t * MAC_ACC_MUL + MAC_REDC320 + (t - 1) * MAC_MONT_MUL)
-    return full + part + dense
 
 
 def kernel_key(mangled: str) -> str:
@@ -241,18 +234,16 @@ def sass_counts(so: str):
     return counts
 
 
-def ntt_tile_macs(L: int, with_epilogue: bool) -> int:
-    """64-bit multiplies of one length-L tile transform: a Montgomery
-    product per butterfly of every stage but the first (whose twiddle is 1),
-    and one per element for the epilogue."""
-    stages = L.bit_length() - 1
-    return MAC_MONT_MUL * (L // 2 * (stages - 1) + (L if with_epilogue else 0))
-
-
-def bound(nbytes: int, macs: int):
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = macs * OPS_PER_MAC64 / INT_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def csv_sizes(name: str, kind: str) -> dict:
+    """(row[kind], k) -> proof_bytes of one of the JAX package's bench
+    CSVs; a key recorded with two sizes raises."""
+    out = {}
+    with open(os.path.join(ROOT, name)) as fh:
+        for row in csv.DictReader(fh):
+            key, size = (row[kind], int(row["k"])), int(row["proof_bytes"])
+            if out.setdefault(key, size) != size:
+                raise AssertionError(f"{name}: two sizes for {key}")
+    return out
 
 
 def nizk_path(dev, rehearse: bool, card: str, by_path: dict) -> None:
@@ -276,14 +267,7 @@ def nizk_path(dev, rehearse: bool, card: str, by_path: dict) -> None:
             torch.cuda.synchronize()
 
     t_phase = time.perf_counter()
-    csv_bytes = {}
-    with open(os.path.join(ROOT, "benchmarkdata_nizk.csv")) as fh:
-        for row in csv.DictReader(fh):
-            key = (row["variant"], int(row["k"]))
-            if csv_bytes.setdefault(key, int(row["proof_bytes"])) != int(
-                    row["proof_bytes"]):
-                raise AssertionError(f"benchmarkdata_nizk.csv: two sizes "
-                                     f"for {key}")
+    csv_bytes = csv_sizes("benchmarkdata_nizk.csv", "variant")
     with open(os.path.join(ROOT, "tests", "data", "torch_golden.json")) as fh:
         nizk_golden = {e["name"]: e for e in json.load(fh)["nizk_entries"]}
     k1_by_batch = {}
@@ -510,6 +494,154 @@ def nizk_path(dev, rehearse: bool, card: str, by_path: dict) -> None:
           "seconds": time.perf_counter() - t_phase, "card": card})
 
 
+def bench_path(dev, rehearse: bool, card: str, by_path: dict,
+               logdir: str) -> None:
+    """The bench harness (`stark_mlwe_tpu_torch.bench`) as the drivers run
+    it: the paper schedule at k = 11-16 and the other twelve presets at
+    k=16 on `gen_witness(k, witness_seed_for(label, k))`, each proof's
+    `proof_bytes` held to benchmarkdata.csv and accepted by the port's
+    verifier (and `BENCH_SPEC_VERIFY`'s by the spec one); the paper k=16
+    proof's sha256 held to the JAX spec
+    prover's (`bench_paper_k16` of tests/data/torch_golden.json); the NIZK
+    sizes at k=12.  Counts set to 0 before each path and read after it."""
+    import torch
+
+    from stark_mlwe_tpu_torch import bench, kernels
+    from stark_mlwe_tpu_torch.spec import fri as spec_fri
+    from stark_mlwe_tpu_torch.stark import serialize_proof
+    from stark_mlwe_tpu_torch.utils import profiling
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    csv_bytes = csv_sizes("benchmarkdata.csv", "label")
+    nizk_bytes = csv_sizes("benchmarkdata_nizk.csv", "variant")
+    with open(os.path.join(ROOT, "tests", "data", "torch_golden.json")) as fh:
+        golden = {e["name"]: e for e in json.load(fh)["entries"]}[
+            BENCH_GOLDEN]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    profiling.reset_phases()
+
+    paper_ks = (11,) if rehearse else BENCH_PAPER_KS
+    presets = ([("uni128", 8)] if rehearse else
+               [(label, BENCH_K) for label, _ in bench.PRESETS
+                if label != "paper"])
+    expected = ["poseidon_permute_t17", "poseidon_permute_warp_t17",
+                "poseidon_permute_warp_t9", "fr_fold", "fr_mont_mul",
+                "fr_batch_inv"]
+    for path, runs, extra in (
+            ("bench paper", [("paper", k) for k in paper_ks], []),
+            ("bench presets", presets, ["poseidon_permute_group_t33",
+                                        "poseidon_permute_group_t65",
+                                        "poseidon_permute_group_t129"])):
+        kernels.reset_launches()
+        sync()
+        for label, k in runs:
+            t0 = time.perf_counter()
+            reps = BENCH_REPS if (label, k) == ("paper", BENCH_K) else 1
+            res = bench.run_mf_fri(label, k, reps=reps, device=dev)
+            proof = res["proof"]
+            params = spec_fri.DeepFriParams(schedule=list(res["schedule"]),
+                                            r=bench.R_QUERIES,
+                                            seed_z=bench.SEED_Z)
+            spec_s = None
+            if label in BENCH_SPEC_VERIFY:
+                t1 = time.perf_counter()
+                if not spec_fri.deep_fri_verify(params, proof):
+                    raise AssertionError(f"{path} {label} k={k}: the spec "
+                                         f"verifier refused the proof")
+                spec_s = time.perf_counter() - t1
+            want = csv_bytes.get((label, k))
+            if want is None and not rehearse:
+                raise AssertionError(f"{label} k={k}: not in "
+                                     f"benchmarkdata.csv")
+            if want is not None and res["proof_bytes"] != want:
+                raise AssertionError(f"{path} {label} k={k}: proof_bytes "
+                                     f"{res['proof_bytes']}, "
+                                     f"benchmarkdata.csv says {want}")
+            if label == "paper":
+                last_paper = proof
+            buf = serialize_proof(proof)
+            sha = hashlib.sha256(buf).hexdigest()
+            line = {"phase": "bench_path", "path": path, "label": label,
+                    "k": k, "schedule": res["schedule"],
+                    "proof_bytes": res["proof_bytes"],
+                    "csv_proof_bytes": want, "wire_bytes": len(buf),
+                    "sha256": sha, "verify": True,
+                    "spec_verify": spec_s is not None,
+                    "spec_verify_seconds": spec_s,
+                    "prove_s": res["prove_s"],
+                    "prove_median_s": res["prove_median_s"],
+                    "prove_samples": res["prove_samples"],
+                    "verify_median_ms": res["verify_median_ms"],
+                    "verify_samples": res["verify_samples"],
+                    "seconds": time.perf_counter() - t0, "card": card}
+            if (label, k) == ("paper", BENCH_K):
+                if (sha, len(buf)) != (golden["sha256"],
+                                       golden["proof_bytes"]):
+                    raise AssertionError(
+                        f"bench paper k={k}: sha256 {sha} ({len(buf)} "
+                        f"bytes) differs from the JAX spec prover's "
+                        f"{golden['sha256']} ({golden['proof_bytes']})")
+                line["matches_jax"] = True
+            emit(line)
+        counts = dict(kernels.launches)
+        by_path[path] = counts
+        if not rehearse:
+            missing = [n for n in expected + extra if counts[n] == 0]
+            if missing:
+                raise AssertionError(f"{path} launched no {missing}")
+
+    nizk = {}
+    for variant, run in (("plain", bench.run_plain_nizk),
+                         ("mf", bench.run_mf_nizk)):
+        kk = 4 if rehearse else 12
+        got = run(kk, device=dev)["proof_bytes"]
+        want = nizk_bytes.get((variant, kk))
+        if not rehearse and got != want:
+            raise AssertionError(f"bench {variant} NIZK k={kk}: {got} "
+                                 f"bytes, benchmarkdata_nizk.csv says "
+                                 f"{want}")
+        nizk[variant] = {"k": kk, "proof_bytes": got, "csv_proof_bytes": want}
+
+    # one paper prove at the last k under torch.profiler, into --log-dir
+    # (the rehearsal traces its verify: the plain versions' millions of
+    # small operations would make a trace of the prove gigabytes long)
+    from stark_mlwe_tpu_torch.fri import (DeviceDeepAliRealBuilder,
+                                          deep_fri_prove, deep_fri_verify)
+    k = paper_ks[-1]
+    cols = bench.packed_witness("paper", k, bench.witness_seed_for("paper", k))
+    params = spec_fri.DeepFriParams(schedule=dict(bench.PRESETS)["paper"],
+                                    r=bench.R_QUERIES, seed_z=bench.SEED_Z)
+    trace_dir = os.path.join(logdir, "trace_bench_paper")
+    with profiling.trace(trace_dir, device=dev) as prof:
+        t0 = time.perf_counter()
+        if rehearse:
+            if not deep_fri_verify(params, last_paper, device=dev):
+                raise AssertionError("bench paper: verify refused the proof")
+        else:
+            deep_fri_prove(DeviceDeepAliRealBuilder(), *cols, 1 << k, params,
+                           device=dev)
+        sync()
+        traced = time.perf_counter() - t0
+    busy = sum(getattr(ev, "self_device_time_total", 0.0)
+               for ev in prof.key_averages()) / 1e6
+    peak = (profiling.device_memory_stats(dev)["max_memory_allocated"]
+            if dev.type == "cuda" else None)
+    emit({"phase": "bench_path", "nizk": nizk,
+          "peak_allocated_bytes": peak,
+          "trace": os.path.join(trace_dir, "trace.json"),
+          "trace_bytes": os.path.getsize(os.path.join(trace_dir,
+                                                      "trace.json")),
+          "traced_seconds": traced, "device_busy_seconds": busy,
+          "device_idle_share": 1.0 - busy / traced,
+          "phase_report": profiling.phase_report(),
+          "seconds": time.perf_counter() - t_phase, "card": card})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None,
@@ -528,6 +660,12 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, ROOT)
     from stark_mlwe_tpu_torch import fri, kernels, native
+    from stark_mlwe_tpu_torch.utils.roofline import (MAC_ACC_MUL,
+                                                     MAC_MONT_MUL,
+                                                     MAC_REDC320, bound,
+                                                     ntt_tile_macs,
+                                                     permute_macs)
+    from stark_mlwe_tpu_torch.utils.profiling import card_line, host_facts
     from stark_mlwe_tpu_torch.fri import fs
     from stark_mlwe_tpu_torch.ops import fr
     from stark_mlwe_tpu_torch.ops import ntt as dntt
@@ -546,12 +684,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     # ---- phase 1: device ------------------------------------------------
-    card = "cpu rehearsal" if rehearse else smi_line()
+    card = "cpu rehearsal" if rehearse else card_line()
     native.available()
+    logdir = args.log_dir or os.path.join(ROOT, "build")
+    os.makedirs(logdir, exist_ok=True)
     if not rehearse:
         kernels.build_all()
-        logdir = args.log_dir or os.path.join(ROOT, "build")
-        os.makedirs(logdir, exist_ok=True)
         with open(os.path.join(logdir, "ptxas.log"), "w") as f:
             for name, log in kernels.build_log.items():
                 f.write(f"==== {name}\n{log}\n")
@@ -559,6 +697,7 @@ def main(argv=None) -> int:
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "kind": None if rehearse else torch.cuda.get_device_name(0),
+          "host": host_facts(),
           "kernel_build_seconds": kernels.build_seconds,
           "setup_seconds": time.perf_counter() - t_start})
 
@@ -1508,6 +1647,9 @@ def main(argv=None) -> int:
     # ---- phase 6: the sum-check NIZK path ------------------------------------
     nizk_path(dev, rehearse, card, by_path)
 
+    # ---- phase 7: the bench harness ------------------------------------------
+    bench_path(dev, rehearse, card, by_path, logdir)
+
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -1531,7 +1673,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 0
 
-    print(smi_line(), flush=True)
+    print(card_line(), flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,16 @@ An entry with `"witness": "device"` hands the four columns over as JAX
 device arrays, so the column digests come through `fs.tagged_hash_vecs`
 (the device branch of `build_f0`) instead of the host engine.
 
+An entry with `"witness": "bench"` proves the bench harness's witness,
+`bench.gen_witness(k, bench.witness_seed_for(label, k))` (four random
+columns), at the preset's schedule, r = 32 and seed_z = 0xDEEF_BAAD, with
+the JAX package's pure-int spec prover (`spec.fri.deep_fri_prove` with
+`DeepAliRealBuilder`, `"prover": "spec"`), to which its device prover is
+held by its own tests; `spec_proof_bytes` is
+`deep_fri_proof_size_bytes`, the `proof_bytes` of `benchmarkdata.csv`.
+That prover took 57.4 s at paper k = 12 (53,944 bytes, the CSV's) on one
+core of an 8-core x86 host; `bench_paper_k16` took 911 s there.
+
 `nizk_entries` are digests of the JAX package's sum-check NIZK proofs at
 the settings of `benchmarkdata_nizk.csv` (`bench.run_plain_nizk` /
 `run_mf_nizk`: witness `StdRng.seed_from_u64(seed)` drawn with
@@ -76,6 +86,10 @@ ENTRIES = [
     {"name": "paper_k11_device_witness", "k": 11, "seed": 4321,
      "schedule": [16, 16, 8], "r": 32, "seed_z": 0xDEEFBAAD,
      "unstructured": True, "witness": "device"},
+    # The bench's paper row at k = 16 (benchmarkdata.csv: 101,600 bytes).
+    {"name": "bench_paper_k16", "k": 16, "label": "paper",
+     "schedule": [16, 16, 8], "r": 32, "seed_z": 0xDEEFBAAD,
+     "witness": "bench", "prover": "spec"},
 ]
 
 NIZK_ENTRIES = [
@@ -151,11 +165,28 @@ def nizk_record(ent) -> dict:
     return rec
 
 
+def bench_proof(ent):
+    """The bench witness of `ent` through the JAX package's spec prover;
+    returns (proof, seed)."""
+    from stark_mlwe_tpu.bench import gen_witness, witness_seed_for
+    from stark_mlwe_tpu.spec import fri as jsfri
+
+    seed = witness_seed_for(ent["label"], ent["k"])
+    params = jsfri.DeepFriParams(schedule=list(ent["schedule"]), r=ent["r"],
+                                 seed_z=ent["seed_z"])
+    proof = jsfri.deep_fri_prove(jsfri.DeepAliRealBuilder(),
+                                 *gen_witness(ent["k"], seed),
+                                 1 << ent["k"], params)
+    assert jsfri.deep_fri_verify(params, proof)
+    return proof, seed
+
+
 def main() -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
     jax.config.update("jax_platforms", "cpu")
     from stark_mlwe_tpu.fri import DeviceDeepAliRealBuilder, deep_fri_prove
+    from stark_mlwe_tpu.spec.fri import deep_fri_proof_size_bytes
     from stark_mlwe_tpu.stark import (DeepFriParams, MlweWitness, prove,
                                       serialize_proof, verify)
 
@@ -165,7 +196,8 @@ def main() -> None:
     have = {e["name"]: e for e in old["entries"]}
     have_ntt = {e["name"]: e for e in old.get("ntt_entries", [])}
     have_nizk = {e["name"]: e for e in old.get("nizk_entries", [])}
-    out = {"source": "stark_mlwe_tpu.stark.prove on the CPU backend",
+    out = {"source": "stark_mlwe_tpu.stark.prove on the CPU backend "
+                     "(prover: spec: stark_mlwe_tpu.spec.fri.deep_fri_prove)",
            "entries": [],
            "ntt_source": "stark_mlwe_tpu.ops.ntt on the CPU backend",
            "ntt_entries": [],
@@ -180,19 +212,23 @@ def main() -> None:
             out["entries"].append(have[ent["name"]])
             continue
         t0 = time.perf_counter()
-        make = (MlweWitness.random_unstructured if ent.get("unstructured")
-                else MlweWitness.random)
-        w = make(k=ent["k"], seed=ent["seed"])
+        rec = dict(ent)
         params = DeepFriParams(schedule=list(ent["schedule"]), r=ent["r"],
                                seed_z=ent["seed_z"])
-        if ent.get("witness") == "device":
-            proof = deep_fri_prove(DeviceDeepAliRealBuilder(), *w.to_device(),
-                                   1 << ent["k"], params)
+        if ent.get("witness") == "bench":
+            proof, rec["seed"] = bench_proof(ent)
+            rec["spec_proof_bytes"] = deep_fri_proof_size_bytes(proof)
         else:
-            proof = prove(w, params)
-        assert verify(params, proof)
+            make = (MlweWitness.random_unstructured
+                    if ent.get("unstructured") else MlweWitness.random)
+            w = make(k=ent["k"], seed=ent["seed"])
+            if ent.get("witness") == "device":
+                proof = deep_fri_prove(DeviceDeepAliRealBuilder(),
+                                       *w.to_device(), 1 << ent["k"], params)
+            else:
+                proof = prove(w, params)
+            assert verify(params, proof)
         buf = serialize_proof(proof)
-        rec = dict(ent)
         rec["proof_bytes"] = len(buf)
         rec["sha256"] = hashlib.sha256(buf).hexdigest()
         out["entries"].append(rec)

@@ -28,8 +28,6 @@ prove's phases.
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from functools import lru_cache
 
 import torch
@@ -52,6 +50,7 @@ from ..spec.transcript import (DS_ABSORB_BYTES, DS_CHALLENGE, RATE,
                                domain_tag_to_field)
 from ..transcript import FastTranscript
 from ..transcript_dev import DeviceTranscript, transcript_params
+from ..utils import phase_timer
 
 __all__ = ["prove_plain", "verify_plain", "prove_mf", "verify_mf",
            "build_vk_plain", "build_vk_mf", "VK", "ProofPlain", "ProofMF",
@@ -68,16 +67,6 @@ MF_GATHER_MIN_N = 1 << 14
 # phases are eager enqueues, so the device work they start is waited for in
 # the readback phase after them).
 phase_seconds: dict = {}
-
-
-@contextmanager
-def _phase(name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        phase_seconds[name] = (phase_seconds.get(name, 0.0)
-                               + time.perf_counter() - t0)
 
 
 def mf_round_challenge_from_root(round_idx: int, prev_root: int) -> int:
@@ -494,14 +483,14 @@ def prove_plain(vk: VK, witness, device=None) -> ProofPlain:
     if vk.variant != "plain":
         raise ValueError(f"prove_plain: VK of variant {vk.variant!r}")
     phase_seconds.clear()
-    with _phase("plain/pack"):
+    with phase_timer("plain/pack", phase_seconds):
         values = _witness_mle(witness, device).values_dev
-    with _phase("plain/chain"):
+    with phase_timer("plain/chain", phase_seconds):
         tree = dmk.build_tree(
             values, DeviceMerkleCommitment(vk.tree_label)._tree_cfg())
         root_dev = tree.levels_dev[-1][0]
         s, cps, final = _plain_chain(values, root_dev, vk.k)
-    with _phase("plain/bundle"):
+    with phase_timer("plain/bundle", phase_seconds):
         # ONE device->host transfer for every value the proof carries.
         bundle = fr.unpack_ints(fr.from_mont(torch.cat(
             [root_dev[None], s[None], cps.reshape(-1, fr.N), final[None]])))
@@ -716,25 +705,25 @@ def prove_mf(vk: VK, witness, device=None) -> ProofMF:
     phase_seconds.clear()
     chan = ProverChannel(FastTranscript(b"E2E/MF"))
     cfg = SumCheckMFConfig(vk.queries_per_round)
-    with _phase("mf/pack"):
+    with phase_timer("mf/pack", phase_seconds):
         mle = _witness_mle(witness, device)
     tree_cfg = DeviceMerkleCommitment(vk.tree_label)._tree_cfg()
-    with _phase("mf/chain_device"):
+    with phase_timer("mf/chain_device", phase_seconds):
         layers, trees, cpairs = _mf_chain_device(mle, tree_cfg, vk.k)
     ctx = None
     if int(mle.values_dev.shape[0]) >= MF_GATHER_MIN_N:
-        with _phase("mf/gather_ctx"):
+        with phase_timer("mf/gather_ctx", phase_seconds):
             ctx = _MFGatherCtx(layers, trees, cpairs)
             roots, cints = ctx.roots_and_cpairs(vk.k)
     else:
-        with _phase("mf/download"):
+        with phase_timer("mf/download", phase_seconds):
             cints = _mf_download(layers, trees, cpairs)
             roots = [t.root() for t in trees]
 
     # Host Fiat-Shamir assembly, byte-identical to SumCheckMFProver's
     # absorb discipline; all data answered from the primed host caches
     # (small n) or per-round device gathers (large n).
-    with _phase("mf/host_assembly"):
+    with phase_timer("mf/host_assembly", phase_seconds):
         chan.send_digest(b"sumcheck-mf/root/0", roots[0])
         s_claim = (2 * cints[0][0] + cints[0][1]) % P   # sum = 2*c0 + c1
         chan.tr.absorb_bytes(b"SUMCHECK/MF/CLAIM")

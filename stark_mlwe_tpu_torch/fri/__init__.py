@@ -21,7 +21,6 @@ Proofs are bit-identical to the spec prover's output.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -40,26 +39,13 @@ from ..spec.fri import (DeepFriParams, DeepFriProof, FriDomain,
                         layer_sizes_from_schedule, pick_arity_for_layer,
                         use_hashed_leaves)
 from ..spec.rng import StdRng, chacha_first_u64_batch
+from ..utils import phase_timer
 from . import deep_ali as dali
 from . import fs
 
 # Wall seconds of the last prove's phases, by name (host clock; a phase
 # that ends in a readback includes the device work it waited for).
 phase_seconds: dict = {}
-
-
-class _phase:
-    def __init__(self, name: str):
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        phase_seconds[self.name] = (phase_seconds.get(self.name, 0.0)
-                                    + time.perf_counter() - self.t0)
-        return False
 
 
 class HostFieldView:
@@ -191,7 +177,7 @@ def fri_build_transcript_dev(f0_dev, domain0: FriDomain, schedule,
             ell, int(f_layers[ell].shape[0]), m_ell,
             f_layers[ell], s_layers[ell], defer_root=True))
 
-    with _phase("fri/roots_readback"):
+    with phase_timer("fri/roots_readback", phase_seconds):
         _roots_readback(layers)
     return FriProverState([lay.f for lay in layers],
                           [lay.s for lay in layers],
@@ -233,7 +219,7 @@ def _device_column_hashes(tags, cols, dev):
     """The device branch's digests: the four columns stacked on `dev`,
     hashed by `fs.tagged_hash_vecs`.  Returns (digests, column tensors)."""
     cols = [_as_mont_dev(c, dev) for c in cols]
-    with _phase("ali/column_hashes"):
+    with phase_timer("ali/column_hashes", phase_seconds):
         return fs.tagged_hash_vecs(tags, torch.stack(cols, dim=0)), cols
 
 
@@ -263,12 +249,10 @@ class DeviceDeepAliRealBuilder:
         # host phi = a*s + e - t merge, its upload, and the omega power
         # table.  The ctypes call releases the GIL.
         def absorb():
-            t0 = time.perf_counter()
-            out = fs.tagged_hash_cols_native(tags, cols)
-            phase_seconds["ali/host_absorb"] = time.perf_counter() - t0
-            return out
+            with phase_timer("ali/host_absorb", phase_seconds):
+                return fs.tagged_hash_cols_native(tags, cols)
 
-        with _phase("ali/column_hashes+overlap"), \
+        with phase_timer("ali/column_hashes+overlap", phase_seconds), \
                 ThreadPoolExecutor(max_workers=1) as pool:
             hashes = pool.submit(absorb)
             phi0 = fr.to_device(fr.from_u64(native.phi_batch(cols)), dev)
@@ -280,7 +264,7 @@ class DeviceDeepAliRealBuilder:
         seed_f = fs.one_block_tagged_hash_batch(
             b"ALI/seed", [[ha, hs, he, ht, n0 % P]])[0]
         z, beta = ali_sample_z_beta_fs(self.ds_tag, n0, seed_f)
-        with _phase("ali/f0_quotient"):
+        with phase_timer("ali/f0_quotient", phase_seconds):
             return dali.f0_from_phi(
                 phi0, w, z, beta=beta,
                 r_eval=r_dev if self.use_blinding else None)
@@ -295,7 +279,7 @@ class DeviceDeepAliRealBuilder:
         r_dev = (_as_mont_dev(self.r_eval_opt, dev)
                  if (self.use_blinding and self.r_eval_opt is not None)
                  else None)
-        with _phase("ali/f0_quotient"):
+        with phase_timer("ali/f0_quotient", phase_seconds):
             f0, _, _ = dali.merge_evals_device(
                 *cols, domain.omega, z, r_eval=r_dev, beta=beta,
                 with_c_star=False)
@@ -473,15 +457,15 @@ def deep_fri_prove(builder, a, s, e, t, n0: int, params: DeepFriParams,
     dev = resolve(device)
     phase_seconds.clear()
     domain0 = FriDomain.new_radix2(n0)
-    with _phase("fri/build_f0"):
+    with phase_timer("fri/build_f0", phase_seconds):
         f0 = builder.build_f0(a, s, e, t, n0, domain0, device=dev)
 
-    with _phase("fri/fold+commit"):
+    with phase_timer("fri/fold+commit", phase_seconds):
         st = fri_build_transcript_dev(f0, domain0, params.schedule,
                                       params.seed_z)
     roots = [lay.root for lay in st.layers]
     roots_seed = fs_seed_from_roots(roots)
-    with _phase("fri/queries"):
+    with phase_timer("fri/queries", phase_seconds):
         refs_only, roots2, batches = fri_prove_queries_dev(st, params.r,
                                                            roots_seed)
     assert roots == roots2

@@ -8,7 +8,8 @@ lib.rs:48-105 of the Rust reference; golden spec in `spec.deep_ali`):
     launches, nothing read back) and the barycentric sum uses
     `fr.batch_inv`, the same kernel, where the reference does O(n)
     per-element modular exponentiations,
-  - omega power tables come from `fr.powers` (doubling).
+  - omega power tables come from `fr.powers` (doubling); `DeviceDomainH`
+    keeps one per domain, for barycentric evaluations and merges on it.
 
 Returns the f0 evaluation vector in Montgomery form, ready for FRI folding
 without leaving device memory.
@@ -16,8 +17,9 @@ without leaving device memory.
 
 from __future__ import annotations
 
+from ..device import resolve
 from ..ops import fr
-from ..spec.field import P
+from ..spec.field import P, get_root_of_unity
 
 
 def _consts(device, *values):
@@ -60,6 +62,38 @@ def f0_from_phi(phi0, w, z: int, beta: int = 0, r_eval=None):
 def omega_powers(omega: int, n: int, device):
     """Device power table [1, w, ..., w^(n-1)] (Montgomery)."""
     return fr.powers(fr.to_device(fr.pack_int(omega, mont=True), device), n)
+
+
+class DeviceDomainH:
+    """Domain cache with an omega-power table on the device
+    (deep_ali/src/lib.rs:109-215).  `device=None` is the card."""
+
+    def __init__(self, n: int, device=None):
+        self.n = n
+        self.omega = get_root_of_unity(n)
+        self.omega_pows = omega_powers(self.omega, n, resolve(device))
+
+    def eval_lagrange(self, values_dev, z: int) -> int:
+        """Barycentric evaluation at z (outside H) of the interpolant of
+        `values_dev` ([n, 8] Montgomery, on the table's device)."""
+        if pow(z, self.n, P) == 1:
+            raise ValueError("z must be outside H")
+        zh = (pow(z, self.n, P) - 1) % P
+        scale = zh * pow(self.n % P, P - 2, P) % P
+        dev = self.omega_pows.device
+        z_m, scale_m = _consts(dev, z, scale)
+        invs = fr.batch_inv(fr.sub(self.omega_pows, z_m))
+        terms = fr.mont_mul(fr.mont_mul(values_dev, self.omega_pows), invs)
+        ssum = fr.neg(fr.reduce_add(terms))
+        out = fr.mont_mul(scale_m, ssum)
+        return fr.unpack_ints(out[None, :], mont=True)[0]
+
+    def merge_deep_ali(self, a, s, e, t, z: int):
+        return merge_evals_device(a, s, e, t, self.omega, z)
+
+    def merge_deep_ali_blinded(self, a, s, e, t, r_eval, beta: int, z: int):
+        return merge_evals_device(a, s, e, t, self.omega, z,
+                                  r_eval=r_eval, beta=beta)
 
 
 def merge_evals_device(a, s, e, t, omega: int, z: int,

@@ -21,6 +21,7 @@ from __future__ import annotations
 from . import field
 
 _MASK32 = 0xFFFFFFFF
+_DRAW_CHUNK_BLOCKS = 1 << 16  # ChaCha blocks a chunk: 4 MiB of keystream
 
 
 def _rotl(x: int, n: int) -> int:
@@ -203,82 +204,79 @@ class StdRng:
 
     def ark_fr_rand_batch(self, n: int) -> list:
         """n sequential `ark_fr_rand()` draws with the keystream generated
-        by the vectorized ChaCha12 (same values, same final RNG state).
-
-        Each attempt consumes exactly 4 aligned u64s (8 words), so the
-        BlockRng odd-index straddle can never occur as long as the entry
-        index is even; odd entry indices fall back to the scalar loop.
-        """
-        if n <= 0:
-            return []
+        by the vectorized ChaCha12 (same values, same final RNG state);
+        an odd entry index, where a u64 straddles two words' blocks, takes
+        the scalar loop."""
         if self._index % 2:
             return [self.ark_fr_rand() for _ in range(n)]
+        return [field.from_montgomery_limbs(
+                    a | b << 64 | c << 128 | d << 192)
+                for a, b, c, d in self.ark_fr_rand_mont_limbs(n).tolist()]
+
+    def ark_fr_rand_mont_limbs(self, n: int):
+        """n sequential `ark_fr_rand()` draws in Montgomery form, as
+        [n, 4] uint64 limbs (low first), leaving the generator where the
+        scalar loop would.
+
+        `F::rand` takes the drawn limbs, top bit cleared, AS the Montgomery
+        representation and the radix is 2^256, so the Montgomery form of a
+        value is its accepted draw: no field arithmetic.  A draw is 4
+        aligned u64s (8 words): the rest of the results buffer, then
+        chunks of whole 4-block buffers, are read as `next_u64` reads them
+        from an even entry index; an odd one raises ValueError."""
         import numpy as np
 
-        leftover = np.asarray(self._results[self._index:], dtype=np.uint32)
-        c0 = self._counter
-        out: list = []
-        words_used = 0  # consumed from (leftover ++ generated stream)
-        gen_blocks = 0  # ChaCha blocks generated so far (vectorized)
-        stream = leftover
+        if self._index % 2:
+            raise ValueError("ark_fr_rand_mont_limbs needs an even entry "
+                             "index")
+        out = np.empty((n, 4), dtype=np.uint64)
         plimbs = np.array([(field.P >> (64 * i)) & 0xFFFFFFFFFFFFFFFF
                            for i in range(4)], dtype=np.uint64)
-        while len(out) < n:
-            need_attempts = (n - len(out)) + 8  # rejection headroom
-            need_words = words_used + need_attempts * 8 - len(stream)
-            if need_words > 0:
-                nb = (need_words + 15) // 16 + 4
-                blocks = _chacha_blocks_np(
-                    np.tile(np.asarray(self._key, np.uint32), (nb, 1)),
-                    np.arange(c0 + gen_blocks, c0 + gen_blocks + nb,
-                              dtype=np.uint64), self.ROUNDS)
-                gen_blocks += nb
-                stream = np.concatenate([stream, blocks.reshape(-1)])
-            avail = (len(stream) - words_used) // 8
-            take = min(avail, need_attempts)
-            w = stream[words_used:words_used + take * 8].reshape(take, 8)
-            u = w[:, 0::2].astype(np.uint64) | (
-                w[:, 1::2].astype(np.uint64) << np.uint64(32))  # [take, 4]
+        key = np.asarray(self._key, np.uint32)
+        lead = np.asarray(self._results[self._index:], dtype=np.uint32)
+        c0 = self._counter
+        carry = lead
+        got, used, gen = 0, 0, 0  # draws kept, words read, blocks made
+        while got < n:
+            # 2 draws a block, ~9 % rejected; whole 4-block buffers
+            nb = min(_DRAW_CHUNK_BLOCKS, ((n - got) * 5 // 8 + 8) // 4 * 4)
+            blocks = _chacha_blocks_np(
+                np.tile(key, (nb, 1)),
+                np.arange(c0 + gen, c0 + gen + nb, dtype=np.uint64),
+                self.ROUNDS)
+            stream = np.concatenate([carry, blocks.reshape(-1)])
+            take = len(stream) // 8
+            w = stream[:8 * take].reshape(take, 8).astype(np.uint64)
+            u = w[:, 0::2] | (w[:, 1::2] << np.uint64(32))
             u[:, 3] &= np.uint64((1 << 63) - 1)
-            # accept iff value < p (lexicographic compare, high limb first)
+            # accept iff u < p, limbs compared from the top
             lt = np.zeros(take, dtype=bool)
             decided = np.zeros(take, dtype=bool)
             for j in (3, 2, 1, 0):
-                less = ~decided & (u[:, j] < plimbs[j])
-                more = ~decided & (u[:, j] > plimbs[j])
-                lt |= less
-                decided |= less | more
-            for i in range(take):
-                if len(out) < n:
-                    words_used += 8
-                    if lt[i]:
-                        v = (int(u[i, 0]) | int(u[i, 1]) << 64
-                             | int(u[i, 2]) << 128 | int(u[i, 3]) << 192)
-                        out.append(field.from_montgomery_limbs(v))
-                else:
-                    break
-        # restore exact BlockRng state at stream position `words_used`
-        if words_used <= len(leftover):
-            self._index += words_used
-        else:
-            q = words_used - len(leftover)
-            full_bufs, rem = divmod(q, self.BUF_WORDS)
-            if rem:
-                base = len(leftover) + full_bufs * self.BUF_WORDS
-                if len(stream) < base + self.BUF_WORDS:
-                    nb = (base + self.BUF_WORDS - len(stream) + 15) // 16
-                    blocks = _chacha_blocks_np(
-                        np.tile(np.asarray(self._key, np.uint32), (nb, 1)),
-                        np.arange(c0 + gen_blocks, c0 + gen_blocks + nb,
-                                  dtype=np.uint64), self.ROUNDS)
-                    gen_blocks += nb
-                    stream = np.concatenate([stream, blocks.reshape(-1)])
+                lt |= ~decided & (u[:, j] < plimbs[j])
+                decided |= u[:, j] != plimbs[j]
+            acc = np.flatnonzero(lt)[:n - got]
+            out[got:got + len(acc)] = u[acc]
+            got += len(acc)
+            if got < n:
+                used += 8 * take
+                carry = stream[8 * take:]
+                gen += nb
+                continue
+            used += 8 * (int(acc[-1]) + 1)
+            # BlockRng's state at word `used` of (lead ++ generated)
+            if used <= len(lead):
+                self._index += used
+                break
+            full, rem = divmod(used - len(lead), self.BUF_WORDS)
+            if rem:  # that buffer ends inside this chunk
+                first = 4 * full - gen
                 self._results = [int(x) for x in
-                                 stream[base:base + self.BUF_WORDS]]
-                self._counter = c0 + 4 * (full_bufs + 1)
+                                 blocks[first:first + 4].reshape(-1)]
+                self._counter = c0 + 4 * (full + 1)
                 self._index = rem
             else:
                 self._results = []
-                self._counter = c0 + 4 * full_bufs
+                self._counter = c0 + 4 * full
                 self._index = self.BUF_WORDS
         return out

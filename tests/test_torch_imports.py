@@ -28,8 +28,10 @@ PORT_MODULES = [
     "stark_mlwe_tpu_torch.spec.mle", "stark_mlwe_tpu_torch.spec.channel",
     "stark_mlwe_tpu_torch.serde", "stark_mlwe_tpu_torch.mle",
     "stark_mlwe_tpu_torch.transcript_dev", "stark_mlwe_tpu_torch.channel",
-    "stark_mlwe_tpu_torch.commitment",
-    "chip_smoke",
+    "stark_mlwe_tpu_torch.commitment", "stark_mlwe_tpu_torch.utils",
+    "stark_mlwe_tpu_torch.utils.profiling",
+    "stark_mlwe_tpu_torch.utils.roofline", "stark_mlwe_tpu_torch.bench",
+    "chip_smoke", "bench_torch", "bench_all_torch", "bench_micro_torch",
 ]
 
 
@@ -54,7 +56,9 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_port_sources_name_no_jax_import():
     pkg = os.path.join(ROOT, "stark_mlwe_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, name) for name in (
+        "chip_smoke.py", "bench_torch.py", "bench_all_torch.py",
+        "bench_micro_torch.py")]
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
