@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels from `stark_mlwe_tpu_torch/csrc/` (nvcc, sm_90a) and
-the host engine (g++) into `build/`, then runs seven phases, one JSON line
+the host engine (g++) into `build/`, then runs eight phases, one JSON line
 each (nizk_path and bench_path one a proof and one to close), and exits
 non-zero as soon as one fails:
 
@@ -112,6 +112,24 @@ non-zero as soon as one fails:
              memory, `utils.profiling.phase_report()`, and a
              `utils.profiling.trace` of one paper k=16 prove in `--log-dir`
              (its idle share beside it)
+  parallel_path  the sharded prover (`distributed`, `parallel`,
+             `parallel.prover`) on a one-rank group set up by
+             `initialize_distributed()`: NCCL on cuda:0 (the line prints
+             the backend and the world size).  (a) `prove_sharded` of
+             main_path (a)'s witness and schedule, byte-equal to its
+             proof, verified, two tampered copies refused, host-clock
+             seconds of `PARALLEL_REPS` proves (median and samples) beside
+             main_path (a)'s; (b) `sharded_deep_fri_prove` of the bench
+             witness at paper k=16, its sha256 the `bench_paper_k16`
+             golden; (c) `build_sharded_prove_step` at n = 2^16, m = arity
+             = 16, on random columns: root, phi_z and f1 equal to
+             `build_tree`, `merge_evals_device` and `fold_layer_dev`, phi_z
+             to `DeviceDomainH.eval_lagrange`; (d) `build_ntt_sharded` at
+             2^11 x 2^11 equal to `ntt` and `ntt_four_step`.  Each with the
+             launch counts and the mesh's collectives set to 0 before it
+             and read after it: K1, K3 and `fr_batch_inv` must have run in
+             (a), (b) and (c), K6 in (d).  More than one rank needs a
+             machine with more than one card
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version, its time, the plain version's
@@ -127,8 +145,9 @@ written to `ptxas.log` in `build/`, or in `--log-dir`, and every JSON line
 of the run to `chip_smoke.jsonl` beside it.
 
 `--rehearse-cpu` walks the same control flow on the CPU at a small size
-(plain versions only, no kernel is built or compared); it is for checking
-the script itself and prints no `ok` line.
+(plain versions only, no kernel is built or compared; the sharded prover
+on a one-rank gloo group); it is for checking the script itself and prints
+no `ok` line.
 """
 
 from __future__ import annotations
@@ -172,6 +191,8 @@ BENCH_GOLDEN = "bench_paper_k16"
 # Presets whose bench proofs the pure-int spec verifier also checks: at
 # widths 65 and 129 it takes 28-42 s a proof on the GPU machine's host.
 BENCH_SPEC_VERIFY = ("paper", "mod16", "uni32x3")
+# Samples of the sharded prove (`parallel_path` (a)).
+PARALLEL_REPS = 3
 CHAIN_REPLACES = ("stark_mlwe_tpu/ops/poseidon_chain.py:429",
                   "stark_mlwe_tpu/ops/poseidon_pallas.py:584")
 
@@ -244,6 +265,27 @@ def csv_sizes(name: str, kind: str) -> dict:
             if out.setdefault(key, size) != size:
                 raise AssertionError(f"{name}: two sizes for {key}")
     return out
+
+
+def check_wire_and_tamper(path: str, params, buf: bytes, dev) -> None:
+    """The wire format round-trips, and two copies with a flipped byte the
+    verifier reads (a root, an opened value of the last query) are
+    refused."""
+    from stark_mlwe_tpu_torch.stark import (deserialize_proof,
+                                            serialize_proof, verify)
+
+    if serialize_proof(deserialize_proof(buf)) != buf:
+        raise AssertionError(f"{path}: wire format does not round-trip")
+    L = len(params.schedule)
+    per_query = 8 + 32 * L + 8 + 128 * L + 8 + 64   # the format's tail
+    for what, off in (("root", 8 + 32 + 8 + 3),
+                      ("opened value",
+                       len(buf) - per_query + 8 + 32 * L + 8 + 1)):
+        bad = bytearray(buf)
+        bad[off] ^= 1
+        if verify(params, deserialize_proof(bytes(bad)), device=dev):
+            raise AssertionError(f"{path}: a proof with a flipped byte "
+                                 f"in a {what} was accepted")
 
 
 def nizk_path(dev, rehearse: bool, card: str, by_path: dict) -> None:
@@ -642,6 +684,196 @@ def bench_path(dev, rehearse: bool, card: str, by_path: dict,
           "seconds": time.perf_counter() - t_phase, "card": card})
 
 
+def parallel_path(dev, rehearse: bool, card: str, by_path: dict, witness,
+                  params, main_buf: bytes, main_prove_s: float) -> None:
+    """The sharded prover (`parallel`, `parallel.prover`) over a one-rank
+    group, NCCL on the card (gloo in the rehearsal): (a) `prove_sharded` of
+    the main path's witness, byte-equal to its proof, verified, tampered
+    copies refused, timed (`PARALLEL_REPS` samples); (b) the bench witness
+    at paper k=16 through `sharded_deep_fri_prove`, its sha256 the JAX
+    spec prover's; (c) `build_sharded_prove_step` at n = 2^16, m = arity =
+    16, on random columns, against the single-device merge, fold and tree
+    and `DeviceDomainH.eval_lagrange`; (d) `build_ntt_sharded` at 2^11 x
+    2^11 against `ntt` and `ntt_four_step`.  Launch counts and collectives
+    set to 0 before each path and read after it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from stark_mlwe_tpu_torch import bench, kernels
+    from stark_mlwe_tpu_torch import parallel as par
+    from stark_mlwe_tpu_torch.distributed import initialize_distributed
+    from stark_mlwe_tpu_torch.fri import (DeviceDeepAliRealBuilder,
+                                          deep_fri_prove, fold_layer_dev, fs,
+                                          s_layer_dev)
+    from stark_mlwe_tpu_torch.fri import deep_ali as dali
+    from stark_mlwe_tpu_torch.merkle import build_tree
+    from stark_mlwe_tpu_torch.ops import fr
+    from stark_mlwe_tpu_torch.ops import ntt as dntt
+    from stark_mlwe_tpu_torch.parallel import prover as spv
+    from stark_mlwe_tpu_torch.spec import fri as spec_fri
+    from stark_mlwe_tpu_torch.spec.field import P, get_root_of_unity
+    from stark_mlwe_tpu_torch.spec.merkle import MerkleChannelCfg
+    from stark_mlwe_tpu_torch.stark import serialize_proof, verify
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    initialize_distributed(device="cpu" if rehearse else None)
+    mesh = par.make_mesh(device=dev)
+    backend = dist.get_backend()
+    # the communicator comes up at its first collective: not in a timing
+    mesh.all_reduce_sum(torch.zeros(1, dtype=torch.int32, device=dev))
+    sync()
+    collectives = {}
+
+    def counted(path, fn):
+        kernels.reset_launches()
+        mesh.reset_collectives()
+        sync()
+        out = fn()
+        sync()
+        by_path[path] = dict(kernels.launches)
+        collectives[path] = dict(mesh.collectives)
+        return out
+
+    def require(path, names):
+        missing = [n for n in names if by_path[path][n] == 0]
+        if missing and not rehearse:
+            raise AssertionError(f"{path} launched no {missing}")
+
+    k1 = ["poseidon_permute_t17", "poseidon_permute_warp_t17",
+          "poseidon_permute_warp_t9"]
+
+    # (a) the main path's witness and schedule
+    k = len(witness.a).bit_length() - 1
+    path_a = f"parallel (a) prove_sharded, paper k={k}"
+    t0 = time.perf_counter()
+    proof = counted(path_a, lambda: spv.prove_sharded(witness, params,
+                                                      mesh=mesh))
+    samples = [time.perf_counter() - t0]
+    phases = dict(spv.phase_seconds)
+    for _ in range(PARALLEL_REPS - 1):
+        t0 = time.perf_counter()
+        spv.prove_sharded(witness, params, mesh=mesh)
+        sync()
+        samples.append(time.perf_counter() - t0)
+    buf = serialize_proof(proof)
+    if buf != main_buf:
+        raise AssertionError(f"{path_a}: the proof differs from main_path's "
+                             f"single-device proof")
+    if not verify(params, proof, device=dev):
+        raise AssertionError(f"{path_a}: verify refused the proof")
+    check_wire_and_tamper(path_a, params, buf, dev)
+    require(path_a, k1 + ["fr_fold", "fr_batch_inv"])
+
+    # (b) the bench witness at paper k=16
+    kb = 11 if rehearse else BENCH_K
+    path_b = f"parallel (b) bench paper k={kb}"
+    cols = bench.packed_witness("paper", kb, bench.witness_seed_for("paper",
+                                                                     kb))
+    bparams = spec_fri.DeepFriParams(schedule=dict(bench.PRESETS)["paper"],
+                                     r=bench.R_QUERIES, seed_z=bench.SEED_Z)
+    sha = hashlib.sha256(serialize_proof(counted(
+        path_b, lambda: spv.sharded_deep_fri_prove(
+            mesh, *cols, 1 << kb, bparams)))).hexdigest()
+    if rehearse:
+        want = hashlib.sha256(serialize_proof(deep_fri_prove(
+            DeviceDeepAliRealBuilder(), *cols, 1 << kb, bparams,
+            device=dev))).hexdigest()
+    else:
+        with open(os.path.join(ROOT, "tests", "data",
+                               "torch_golden.json")) as fh:
+            want = {e["name"]: e for e in json.load(fh)["entries"]}[
+                BENCH_GOLDEN]["sha256"]
+    if sha != want:
+        raise AssertionError(f"{path_b}: sha256 {sha}, expected {want}")
+    require(path_b, k1 + ["fr_fold", "fr_batch_inv"])
+
+    # (c) the sharded step on random columns
+    rng = np.random.default_rng(SEED + 8)
+
+    def rand_elems(n):
+        raw = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+        raw[:, 7] &= 0x3FFFFFFF          # < 2^254 < P
+        return fr.to_device(raw.astype(np.uint32).view(np.int32), dev)
+
+    log_n, m_s = (8 if rehearse else 16), 16
+    n_s = 1 << log_n
+    path_c = f"parallel (c) build_sharded_prove_step n=2^{log_n}"
+    local = n_s // mesh.size
+    mine = slice(mesh.rank * local, (mesh.rank + 1) * local)
+    a, s, e, t = (rand_elems(n_s) for _ in range(4))
+    omega = get_root_of_unity(n_s)
+    z, z_fold = 0x1234567, 0xABCDEF
+    zh = (pow(z, n_s, P) - 1) % P
+    scale = zh * pow(n_s % P, P - 2, P) % P
+    step, ds_locals, _ = par.build_sharded_prove_step(mesh, n_s, m_s, m_s)
+    w = dali.omega_powers(omega, n_s, dev)
+    zpow = fr.to_device(fr.pack_ints([pow(z_fold, j, P) for j in range(m_s)],
+                                     mont=True), dev)
+    root, phi_z, f1 = counted(path_c, lambda: step(
+        a[mine], s[mine], e[mine], t[mine], w[mine],
+        fr.const(z, dev, mont=True), fr.const(scale, dev, mont=True), zpow,
+        *ds_locals))
+    f0_ref, _, c_star = dali.merge_evals_device(a, s, e, t, omega, z)
+    f1_ref = fold_layer_dev(f0_ref, z_fold, m_s)
+    root_ref = build_tree(fs.hash_leaf_pairs_dev(
+        f0_ref, s_layer_dev(f0_ref, f1_ref, m_s)),
+        MerkleChannelCfg.new(m_s, tree_label=0)).root()
+    phi_z = fr.unpack_ints(phi_z[None], mont=True)[0]
+    lagrange = dali.DeviceDomainH(n_s, device=dev).eval_lagrange(
+        dali.phi_kernel(a, s, e, t), z)
+    rows = slice(mesh.rank * local // m_s, (mesh.rank + 1) * local // m_s)
+    if fr.unpack_ints(root[None], mont=True)[0] != root_ref:
+        raise AssertionError(f"{path_c}: root differs from build_tree's")
+    if not phi_z == lagrange == c_star * zh % P:
+        raise AssertionError(f"{path_c}: phi_z differs from eval_lagrange")
+    if not torch.equal(f1, f1_ref[rows]):
+        raise AssertionError(f"{path_c}: f1 differs from fold_layer_dev")
+    require(path_c, ["poseidon_permute_t17", "fr_fold", "fr_batch_inv"])
+    del a, s, e, t, w, f0_ref, f1_ref
+
+    # (d) the sharded four-step NTT
+    n1 = n2 = 1 << (4 if rehearse else 11)
+    path_d = f"parallel (d) build_ntt_sharded 2^{(n1 * n2).bit_length() - 1}"
+    x = rand_elems(n1 * n2)
+    fn, tw_local = par.build_ntt_sharded(mesh, n1, n2)
+    rows = n1 * n2 // mesh.size
+    mine = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
+    y = counted(path_d, lambda: fn(x[mine], tw_local))
+    t0 = time.perf_counter()
+    fn(x[mine], tw_local)
+    sync()
+    ntt_s = time.perf_counter() - t0
+    if not torch.equal(y, dntt.ntt(x)[mine]):
+        raise AssertionError(f"{path_d}: differs from ntt")
+    if not torch.equal(y, dntt.ntt_four_step(x, n1, n2)[mine]):
+        raise AssertionError(f"{path_d}: differs from ntt_four_step")
+    require(path_d, ["fr_ntt_tiles", "fr_mont_mul"])
+    del x, y
+    dntt.clear_tables()
+
+    emit({"phase": "parallel_path", "backend": backend,
+          "world_size": mesh.size, "rank": mesh.rank, "device": str(dev),
+          "k": k, "schedule": params.schedule, "r": params.r,
+          "proof_bytes": len(buf), "equals_main_path": True, "verify": True,
+          "tamper_refused": True,
+          "prove_seconds_median": statistics.median(samples),
+          "prove_samples": samples, "main_path_prove_seconds": main_prove_s,
+          "phase_seconds": phases,
+          "bench": {"k": kb, "sha256": sha, "matches": True},
+          "step": {"n": n_s, "m": m_s, "arity": m_s, "exact": True},
+          "ntt": {"n1": n1, "n2": n2, "exact": True, "seconds": ntt_s},
+          "launches": {p: {n: c for n, c in by_path[p].items() if c}
+                       for p in (path_a, path_b, path_c, path_d)},
+          "collectives": collectives,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None,
@@ -677,8 +909,7 @@ def main(argv=None) -> int:
     from stark_mlwe_tpu_torch.spec.merkle import MerkleChannelCfg
     from stark_mlwe_tpu_torch.spec.transcript import default_params
     from stark_mlwe_tpu_torch.stark import (DeepFriParams, MlweWitness,
-                                            deserialize_proof, prove,
-                                            serialize_proof, verify)
+                                            prove, serialize_proof, verify)
 
     dev = torch.device("cpu") if rehearse else torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1405,6 +1636,7 @@ def main(argv=None) -> int:
     # of `fr_batch_inv`.
     F0 = ["fr_mont_mul", "fr_add", "fr_batch_inv"]
     by_path = {}
+    prove_seconds = {}
 
     def drive(path, params, run, expected, absent_phase=None, counts_are=()):
         """One path: counts to 0, prove + verify, counts read; then the
@@ -1417,6 +1649,7 @@ def main(argv=None) -> int:
         sync()
         prove_s = time.perf_counter() - t0
         phases = dict(fri.phase_seconds)
+        prove_seconds[path] = prove_s
         t0 = time.perf_counter()
         accepted = verify(params, proof, device=dev)
         verify_s = time.perf_counter() - t0
@@ -1426,18 +1659,8 @@ def main(argv=None) -> int:
         if not accepted:
             raise AssertionError(f"{path}: verify refused the proof")
         buf = serialize_proof(proof)
-        if serialize_proof(deserialize_proof(buf)) != buf:
-            raise AssertionError(f"{path}: wire format does not round-trip")
+        check_wire_and_tamper(path, params, buf, dev)
         L = len(params.schedule)
-        per_query = 8 + 32 * L + 8 + 128 * L + 8 + 64   # the format's tail
-        for what, off in (("root", 8 + 32 + 8 + 3),
-                          ("opened value",
-                           len(buf) - per_query + 8 + 32 * L + 8 + 1)):
-            bad = bytearray(buf)
-            bad[off] ^= 1
-            if verify(params, deserialize_proof(bytes(bad)), device=dev):
-                raise AssertionError(f"{path}: a proof with a flipped byte "
-                                     f"in a {what} was accepted")
         if len(proof.roots) != L + 1 or len(proof.queries) != params.r \
                 or proof.n0 != 1 << k:
             raise AssertionError(f"{path}: proof of unexpected shape")
@@ -1649,6 +1872,10 @@ def main(argv=None) -> int:
 
     # ---- phase 7: the bench harness ------------------------------------------
     bench_path(dev, rehearse, card, by_path, logdir)
+
+    # ---- phase 8: the sharded prover -------------------------------------------
+    parallel_path(dev, rehearse, card, by_path, witness, paper, buf_host,
+                  prove_seconds["paper, host witness"])
 
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -93,15 +93,20 @@ class GatherBatch:
         self._items.append((arr, [int(i) for i in indices]))
         return len(self._items) - 1
 
-    def run(self):
-        """Resolves all gathers; returns one int list per handle."""
+    def _rows(self):
+        """Every queued row, in order: one [total, 8] Montgomery tensor
+        (None when nothing was queued)."""
         parts = []
         for arr, idxs in self._items:
             if idxs:
                 ix = torch.tensor(idxs, dtype=torch.int64, device=arr.device)
                 parts.append(arr.index_select(0, ix))
-        ints = (fr.unpack_ints(fr.from_mont(torch.cat(parts, dim=0)))
-                if parts else [])
+        return torch.cat(parts, dim=0) if parts else None
+
+    def run(self):
+        """Resolves all gathers; returns one int list per handle."""
+        rows = self._rows()
+        ints = fr.unpack_ints(fr.from_mont(rows)) if rows is not None else []
         out = []
         off = 0
         for _, idxs in self._items:
@@ -348,11 +353,14 @@ def derive_query_indices_batched(roots_seed: int, schedule, r: int, sizes):
     return out
 
 
-def fri_prove_queries_dev(st: FriProverState, r: int, roots_seed: int):
+def fri_prove_queries_dev(st: FriProverState, r: int, roots_seed: int,
+                          batch: GatherBatch | None = None):
     """fri.rs:355-466 with batched index derivation and ALL value fetches
     (Merkle path siblings, f/s payload entries, the final pair) resolved
     in ONE device->host gather; proof assembly is identical to
-    spec.fri.fri_prove_queries."""
+    spec.fri.fri_prove_queries.  `batch` resolves the gathers (default: a
+    `GatherBatch`; the sharded prover passes one that reads every rank's
+    rows)."""
     L = len(st.schedule)
     sizes = [lay.n for lay in st.layers]
     idx_map = derive_query_indices_batched(roots_seed, st.schedule, r, sizes)
@@ -372,7 +380,7 @@ def fri_prove_queries_dev(st: FriProverState, r: int, roots_seed: int):
         refs_per_query.append(per_layer)
 
     # ---- plan everything, then fetch in one batch --------------------
-    batch = GatherBatch()
+    batch = GatherBatch() if batch is None else batch
     plans = []
     for ell in range(L):
         child_idx = sorted(set(child_buckets[ell]))
@@ -469,24 +477,26 @@ def deep_fri_prove(builder, a, s, e, t, n0: int, params: DeepFriParams,
         refs_only, roots2, batches = fri_prove_queries_dev(st, params.r,
                                                            roots_seed)
     assert roots == roots2
+    return DeepFriProof(roots, batches, query_payloads(st, refs_only), n0,
+                        domain0.omega)
 
+
+def query_payloads(st: FriProverState, refs_only) -> list:
+    """The proof's queries: each query's refs with the opened f/s values of
+    every layer, read from the primed layer views."""
     queries = []
-    L = len(params.schedule)
-    for q in range(params.r):
+    for qp in refs_only:
         payloads = []
-        for ell in range(L):
-            ref = refs_only[q].per_layer_refs[ell]
+        for ell, ref in enumerate(qp.per_layer_refs):
             payloads.append(LayerOpenPayload(
                 st.layers[ell].f[ref.i],
                 st.layers[ell].s[ref.i],
                 st.layers[ell + 1].f[ref.parent_index],
                 st.layers[ell + 1].s[ref.parent_index],
             ))
-        queries.append(FriQueryPayload(
-            refs_only[q].per_layer_refs, payloads,
-            refs_only[q].final_index, refs_only[q].final_pair))
-
-    return DeepFriProof(roots, batches, queries, n0, domain0.omega)
+        queries.append(FriQueryPayload(qp.per_layer_refs, payloads,
+                                       qp.final_index, qp.final_pair))
+    return queries
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,8 @@ PORT_MODULES = [
     "stark_mlwe_tpu_torch.commitment", "stark_mlwe_tpu_torch.utils",
     "stark_mlwe_tpu_torch.utils.profiling",
     "stark_mlwe_tpu_torch.utils.roofline", "stark_mlwe_tpu_torch.bench",
+    "stark_mlwe_tpu_torch.distributed", "stark_mlwe_tpu_torch.parallel",
+    "stark_mlwe_tpu_torch.parallel.prover",
     "chip_smoke", "bench_torch", "bench_all_torch", "bench_micro_torch",
 ]
 
